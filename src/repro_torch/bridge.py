@@ -1,0 +1,45 @@
+"""Weight bridge: the reference's params as the port's tensors.
+
+The reference keeps params as nested dicts with per-layer stacks on a
+leading L axis and the ``x @ W`` layout (``repro/models/transformer.py``
+``init_params``, ``repro/core/speculative/medusa.py`` ``init_medusa``).  The
+port keeps the same structure and layout, so the bridge is a leaf-by-leaf
+copy.  It takes numpy arrays (the caller converts the JAX arrays; this
+module imports no JAX) and never draws random numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.devices import resolve_device
+
+
+def _tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16: reinterpret the 16-bit payload
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype if t.is_floating_point()
+                else t.dtype)
+
+
+def _convert(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    return _tensor(tree, device, dtype)
+
+
+def params_from_jax(cfg, tree, device="cuda", dtype=None):
+    """Model params (nested dict of numpy arrays) -> the port's params."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    return _convert(tree, resolve_device(device), dt)
+
+
+def heads_from_jax(cfg, tree, device="cuda", dtype=None):
+    """Medusa heads ({"w": (H,d,d), "out": (H,d,Vp)}) -> the port's heads."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    return _convert(tree, resolve_device(device), dt)

@@ -1,0 +1,21 @@
+"""Qwen3-235B-A22B [moe] — 128 experts top-8, GQA kv=4. [hf:Qwen/Qwen3-30B-A3B family]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-235b-a22b",
+    arch_type="moe",
+    source="hf:Qwen/Qwen3-30B-A3B",
+    num_layers=94,
+    d_model=4096,
+    num_heads=64,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=1536,                 # per-expert intermediate size
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    num_experts=128,
+    experts_per_token=8,
+    sliding_window=8192,
+    fsdp=True,                 # 470 GB bf16: must shard on data axis too
+)

@@ -1,0 +1,333 @@
+"""Serving engine: ONE chunked decode driver parameterized by a
+``DecodeStrategy`` (counterpart of ``repro/runtime/engine.py``, dense
+layout).
+
+A strategy bundles the verification tree, its width and the draft source:
+
+  * ``DecodeStrategy.medusa(tree_spec, device)``: Ghidorah speculative
+    decoding.  Medusa heads draft, the tree is verified in one forward, each
+    sequence accepts its own chain (paper §III).
+  * ``DecodeStrategy.sequential(device)``: the degenerate width-1 strategy.
+    The tree is just the root and there is no draft source, so the step is
+    plain one-token decoding through ``model.decode``.
+
+Chunked driver: K steps run back to back on the device with ONE host sync
+per chunk (the chunk's tokens, counts, done mask and budgets come back in
+one transfer).  A row goes (and stays) done on EOS, on its ``rem`` budget
+reaching 0, or on a capacity freeze: a full (window=0) KV cache that cannot
+take a worst-case accepted chain (``capacity_left < tree.max_depth``)
+freezes instead of wrapping its ring.  Done speculative rows commit nothing
+(``spec_step(active=...)``); done sequential rows keep stepping with their
+emission masked and their ``key_pos``/``pos`` restored.  The host loop
+clamps the chunk length to the largest remaining budget (power-of-two
+schedule).
+
+The KV cache is updated in place where the reference donates it.  The paged
+pool, the HCMP overlap runner, int8 KV, the sparse verify split,
+``time_step`` and the ``sched_*`` slot protocol come with later slices
+(ROADMAP A6-A9); their constructor arguments raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.speculative.tree import Tree, TreeSpec, chain_spec
+from repro_torch.core.speculative.verify import (SpecState, spec_prefill,
+                                                 spec_step)
+from repro_torch.runtime.cache import Cache, capacity_left
+from repro_torch.runtime.sampling import greedy
+
+_NO_EOS = -1          # sentinel: no real token id is negative
+
+
+def _budget(n_tokens, batch) -> np.ndarray:
+    """Per-sequence token budgets: scalar broadcast or (B,) array."""
+    b = np.broadcast_to(np.asarray(n_tokens, np.int32), (batch,)).copy()
+    if np.any(b < 1):
+        raise ValueError("n_tokens must be >= 1 per sequence")
+    return b
+
+
+def _pow2_chunk(k_max: int, need: int) -> int:
+    """Smallest power-of-two chunk covering ``need`` steps, capped at
+    ``k_max``: bounds the tail-chunk overshoot."""
+    k = 1
+    while k < need and k < k_max:
+        k *= 2
+    return min(k, k_max)
+
+
+# ===========================================================================
+@dataclasses.dataclass(frozen=True)
+class DecodeStrategy:
+    """What one decode step does: verification tree + width + draft source
+    (``"medusa"``: heads draft, the tree is verified in one forward;
+    ``"none"``: the tree is the ``chain_spec(1)`` root, plain decode)."""
+    width: int
+    draft: str                   # "medusa" | "none"
+    tree: Tree
+
+    @staticmethod
+    def sequential(device) -> "DecodeStrategy":
+        return DecodeStrategy(width=1, draft="none",
+                              tree=Tree.from_spec(chain_spec(1), device))
+
+    @staticmethod
+    def medusa(spec: TreeSpec, device) -> "DecodeStrategy":
+        return DecodeStrategy(width=spec.width, draft="medusa",
+                              tree=Tree.from_spec(spec, device))
+
+
+# ===========================================================================
+def _prefill_state(model, params, heads, batch, *, max_len, window):
+    """Prefill -> engine state.  ``heads is None`` selects the draft-free
+    path (no hidden carry)."""
+    if heads is None:
+        logits, _, cache = model.prefill(params, batch, max_len=max_len,
+                                         window=window)
+        return SpecState(cache=cache, cur_token=greedy(logits[:, -1]),
+                         hidden=None)
+    return spec_prefill(model, params, heads, batch, max_len=max_len,
+                        window=window)
+
+
+def _seq_step(model, params, state, *, active):
+    """One step of the degenerate width-1 strategy: plain one-token decode.
+    Interface mirrors ``spec_step``: returns (state, emitted (B, 1), n (B,)
+    in {0, 1}).
+
+    Every row decodes, done ones included; their ``key_pos``/``pos`` are
+    restored afterwards so a done row's KV bookkeeping is frozen (its
+    garbage k/v write stays invisible and is overwritten by the slot's next
+    real write).  ``decode`` builds new ``key_pos``/``pos`` tensors, so the
+    old ones are still intact here."""
+    kv0 = state.cache.kv
+    lg, cache = model.decode(params, state.cache, state.cur_token[:, None])
+    done = ~active
+    kv = cache.kv
+    cache = Cache(kv=dataclasses.replace(
+        kv,
+        key_pos=torch.where(done[:, None], kv0.key_pos, kv.key_pos),
+        pos=torch.where(done, kv0.pos, kv.pos)))
+    nxt = greedy(lg[:, 0])
+    cur = torch.where(active, nxt, state.cur_token)
+    return (SpecState(cache=cache, cur_token=cur, hidden=state.hidden),
+            nxt[:, None], active.to(torch.int64))
+
+
+class DecodeEngine:
+    """ONE serving engine for every decode strategy.
+
+    ``strategy`` picks what a step does; ``heads`` are required exactly
+    when the strategy drafts.  ``chunk`` = K steps per host sync; K=1 is the
+    per-step host-synced loop.  The engine runs on the device of its params.
+    """
+
+    def __init__(self, model, params, *, strategy: Optional[DecodeStrategy]
+                 = None, heads=None, max_len=512, window=0, chunk=8,
+                 paged=False, hcmp="inline", kv_dtype=None,
+                 tree_kernel="dense"):
+        if paged:
+            raise NotImplementedError("paged=True: the paged KV pool is not "
+                                      "yet ported (ROADMAP A7)")
+        if hcmp != "inline":
+            raise NotImplementedError(f"hcmp={hcmp!r}: the HCMP executor "
+                                      "split is not yet ported (ROADMAP A9)")
+        if kv_dtype is not None:
+            raise NotImplementedError("kv_dtype: quantized KV pages are not "
+                                      "yet ported (ROADMAP A7)")
+        if tree_kernel != "dense":
+            raise NotImplementedError(f"tree_kernel={tree_kernel!r}: the "
+                                      "split verify is not yet ported "
+                                      "(ROADMAP B3-B4)")
+        self.device = params["embed"].device
+        if strategy is None:
+            if heads is not None:
+                raise ValueError("an engine with draft heads needs an "
+                                 "explicit DecodeStrategy.medusa(tree_spec)")
+            strategy = DecodeStrategy.sequential(self.device)
+        if (strategy.draft == "medusa") != (heads is not None):
+            raise ValueError(
+                f"strategy draft {strategy.draft!r} "
+                f"{'requires' if strategy.draft == 'medusa' else 'forbids'} "
+                "draft heads")
+        self.model, self.params, self.heads = model, params, heads
+        self.strategy = strategy
+        self.max_len, self.window = max_len, window
+        self.chunk = chunk
+        self.tree_kernel = tree_kernel
+
+    # ---- strategy axis ---------------------------------------------------
+    def strategy_for(self, spec: TreeSpec) -> DecodeStrategy:
+        """Build a DecodeStrategy of THIS engine's draft kind from a tree
+        spec (the state carry differs across draft kinds)."""
+        if self.heads is None:
+            if spec.width != 1:
+                raise ValueError("a draft-free engine can only run the "
+                                 "degenerate width-1 strategy")
+            return DecodeStrategy.sequential(self.device)
+        return DecodeStrategy.medusa(spec, self.device)
+
+    def set_strategy(self, strategy) -> None:
+        """Swap the decode strategy between chunks.  Accepts a
+        ``DecodeStrategy`` or a ``TreeSpec``; the draft kind must match the
+        engine's."""
+        if isinstance(strategy, TreeSpec):
+            strategy = self.strategy_for(strategy)
+        if strategy.draft != self.strategy.draft:
+            raise ValueError(f"cannot switch draft kind "
+                             f"{self.strategy.draft!r} -> {strategy.draft!r}"
+                             " (the state carry differs)")
+        self.strategy = strategy
+
+    # ---- the ONE chunk driver --------------------------------------------
+    def _run_chunk(self, K, strategy, state, done, rem, eos_val):
+        """K steps on the device, no host sync.  Returns (state, done, rem,
+        toks (K, B, Dmax) eos-padded, ns (K, B) emitted counts)."""
+        model, params = self.model, self.params
+        toks, ns = [], []
+        for _ in range(K):
+            # capacity guard BEFORE the step: a commit may write up to
+            # max_depth slots (1 for sequential), so freeze once the ring
+            # cannot take a worst case without wrapping
+            done = done | (rem <= 0) | \
+                (capacity_left(state.cache) < strategy.tree.max_depth)
+            active = ~done
+            if strategy.draft == "none":
+                state, emitted, n = _seq_step(model, params, state,
+                                              active=active)
+            else:
+                state, emitted, n = spec_step(model, params, self.heads,
+                                              strategy.tree, state,
+                                              tree_kernel=self.tree_kernel,
+                                              active=active)
+            idx = torch.arange(emitted.shape[1], device=emitted.device)[None]
+            valid = idx < n[:, None]
+            is_eos = valid & (emitted == eos_val)
+            has_eos = is_eos.any(dim=1)
+            # truncate each sequence's emission at its first EOS
+            n_cut = torch.where(
+                has_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1, n)
+            n_eff = torch.where(active, n_cut, 0)
+            emitted = torch.where(idx < n_eff[:, None], emitted, eos_val)
+            done = done | has_eos
+            rem = rem - n_eff
+            toks.append(emitted)
+            ns.append(n_eff)
+        return state, done, rem, torch.stack(toks), torch.stack(ns)
+
+    # ---- batch generation ------------------------------------------------
+    def generate(self, batch, n_tokens, *, eos: Optional[int] = None,
+                 chunk: Optional[int] = None):
+        """``n_tokens``: int or (B,) per-sequence budgets.  Returns
+        ``(out, stats)``; rows past their budget / EOS / capacity freeze
+        pad with ``eos`` (-1 if None) and ``stats["n_emitted"]`` has the
+        real per-sequence counts.  Drafted engines return a 1-D token
+        array at B=1; the sequential strategy always returns
+        ``(B, max_budget)``.  ``stats["device_steps"]`` counts the decode
+        steps run on the device (each one verify or decode forward)."""
+        K = chunk or self.chunk
+        eos_val = _NO_EOS if eos is None else int(eos)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B = int(tokens.shape[0])
+        budget = _budget(n_tokens, B)
+        state = _prefill_state(self.model, self.params, self.heads,
+                               {"tokens": tokens}, max_len=self.max_len,
+                               window=self.window)
+        n_max = int(budget.max())
+        # prologue sync: the prefill's first token
+        first = state.cur_token.tolist()
+        outs = [[first[b]] for b in range(B)]
+        done = state.cur_token == eos_val
+        rem = torch.as_tensor(budget - 1, device=self.device)
+        done_np = np.array([t == eos_val for t in first])
+        rem_np = budget - 1
+        accepts, times, device_steps = [], [], 0
+
+        while np.any(~done_np & (rem_np > 0)):
+            # every live step emits >= 1 token, so the largest remaining
+            # budget bounds the steps still needed
+            need = int(rem_np[~done_np & (rem_np > 0)].max())
+            k = _pow2_chunk(K, need)
+            t0 = time.perf_counter()
+            state, done, rem, toks, ns = self._run_chunk(
+                k, self.strategy, state, done, rem, eos_val)
+            # ONE host sync per chunk: tokens, counts, done and budgets
+            # travel in one transfer
+            D = toks.shape[2]
+            host = torch.cat([toks.reshape(-1), ns.reshape(-1),
+                              done.to(torch.int64), rem.to(torch.int64)])
+            host = host.cpu().numpy()
+            times.append(time.perf_counter() - t0)
+            device_steps += k
+            toks_np = host[:k * B * D].reshape(k, B, D)
+            ns_np = host[k * B * D:k * B * (D + 1)].reshape(k, B)
+            done_np = host[k * B * (D + 1):k * B * (D + 1) + B] != 0
+            rem_np = host[-B:]
+            for s in range(k):
+                for b in range(B):
+                    m = int(ns_np[s, b])
+                    if m and len(outs[b]) < budget[b]:
+                        # count only steps whose tokens are (at least
+                        # partly) kept: overshoot steps past n_tokens would
+                        # bias the acceptance stats
+                        accepts.append(m)
+                        outs[b].extend(int(x) for x in toks_np[s, b, :m])
+
+        n_emitted = np.array([min(len(outs[b]), int(budget[b]))
+                              for b in range(B)], np.int32)
+        stats = _stats(accepts, times)
+        stats["chunk"] = K
+        stats["device_steps"] = device_steps
+        stats["n_emitted"] = n_emitted
+        stats["emitted_total"] = int(n_emitted.sum())
+        out = np.full((B, n_max), eos_val, np.int32)
+        for b in range(B):
+            seq = outs[b][:budget[b]]
+            out[b, :len(seq)] = seq
+        if B == 1 and self.strategy.draft == "medusa":
+            return out[0], stats
+        return out, stats
+
+
+# ===========================================================================
+class BatchEngine(DecodeEngine):
+    """Sequential baseline = ``DecodeEngine`` pinned to the width-1
+    strategy (no draft)."""
+
+    def __init__(self, model, params, *, max_len=512, window=0, chunk=8,
+                 paged=False, kv_dtype=None):
+        super().__init__(model, params,
+                         strategy=DecodeStrategy.sequential(
+                             params["embed"].device),
+                         max_len=max_len, window=window, chunk=chunk,
+                         paged=paged, kv_dtype=kv_dtype)
+
+
+class SpeculativeEngine(DecodeEngine):
+    """Ghidorah speculative serving = ``DecodeEngine`` with a Medusa-draft
+    strategy built from ``tree_spec``."""
+
+    def __init__(self, model, heads, params, tree_spec: TreeSpec, *,
+                 max_len=512, window=0, chunk=8, paged=False, hcmp="inline",
+                 kv_dtype=None, tree_kernel="dense"):
+        super().__init__(model, params, heads=heads,
+                         strategy=DecodeStrategy.medusa(
+                             tree_spec, params["embed"].device),
+                         max_len=max_len, window=window, chunk=chunk,
+                         paged=paged, hcmp=hcmp, kv_dtype=kv_dtype,
+                         tree_kernel=tree_kernel)
+
+
+def _stats(accepts, times):
+    accepts = np.asarray(accepts)
+    return {
+        "acceptance_length": float(np.mean(accepts)) if accepts.size else 0.0,
+        "steps": int(accepts.size),
+        "step_times": times,
+    }

@@ -1,0 +1,71 @@
+"""The port (``src/repro_torch``) stands alone: it imports with jax blocked,
+no module of it imports jax, triton or the reference package, and its file
+names leave the reference's reprolint kernel checks intact."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+from repro.analysis.core import Project, collect_files
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PORT = SRC / "repro_torch"
+
+
+def _modules():
+    out = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "sys.modules['triton'] = None\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k, v in sys.modules.items() if v is not None\n"
+        "             and k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) == len(_modules()) >= 25
+
+
+def test_no_port_module_imports_jax_triton_or_reference():
+    banned = {"jax", "jaxlib", "triton", "repro"}
+    hits = []
+    for p in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(p.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            hits += [f"{p.relative_to(SRC)}:{node.lineno} {n}" for n in names
+                     if n.split(".")[0] in banned]
+    assert hits == [], hits
+
+
+def test_reference_oracle_lookups_stay_unique():
+    """reprolint R8 cross-checks the Pallas wrappers against
+    ``kernels/ref.py`` through ``Project.find``, which returns None when
+    two files match: the port must not add a second ``kernels/ref.py`` or
+    ``kernels/ops.py``, nor a file R8 would take for a Pallas kernel."""
+    project = Project(collect_files([SRC]))
+    assert project.find("kernels/ref.py").rel == "repro/kernels/ref.py"
+    assert project.find("kernels/ops.py").rel == "repro/kernels/ops.py"
+    names = {p.name for p in PORT.rglob("*.py")}
+    assert not names & {"tree_attention.py", "sparse_tree.py"}
