@@ -9,15 +9,26 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 1. Print the card's name and power limit (``nvidia-smi``); pin float32
    matmuls and convolutions to full precision (no TF32).
 2. Build every CUDA kernel of the port from the checkout's sources.
-3. Hold each kernel against its plain PyTorch version on the card: the
-   reference kernel sweep (``tests/test_kernels.py`` CASES) and the main
-   path's shapes, at the reference's tolerances (fp32 2e-5, bf16 2e-2).
+3. Hold each kernel against its plain PyTorch version on the card, at the
+   reference's tolerances (fp32 2e-5, bf16 2e-2; every output finite):
+   the dense verify kernel over the reference sweep (``tests/test_kernels.py``
+   CASES); the paged page walk, the cache-only walk and the tree partial
+   over the window-0 CASES turned into page tables and over
+   PAGED_INT8_CASES (fragmented tables, -1 entries, partial last pages);
+   all of them at the main path's shapes.
 4. Serve ``vicuna-7b`` at full width with random bf16 weights through the
-   port's serve entry point, ``--mode ghidorah --width 8`` and
-   ``--mode sequential``, and check the tokens, the logits and that every
-   verify/decode forward went through the kernel.
-5. Time each kernel at the main path's shapes with CUDA events, beside its
-   plain version, one PyTorch library call and its memory/compute bound.
+   port's serve entry point: ``--mode ghidorah --width 8`` and
+   ``--mode sequential`` on the dense cache, then on the paged pool (page
+   size 16): ghidorah and sequential in the model's dtype, ghidorah with
+   ``--kv-dtype int8``, and ghidorah with ``--kv-dtype int8 --tree-kernel
+   sparse``.  Every kernel's launch count is set to 0 just before each run
+   and read just after: each forward of a run must go through its kernel
+   (``launches == layers x steps``) and through no other attention kernel.
+   Check the tokens and the logits, and report how far the runs agree.
+5. Time each kernel at the main path's shapes with CUDA events (the cost
+   of a call) and under torch.profiler (the kernel's device time), beside
+   its plain version, one PyTorch library call where there is one, and its
+   memory/compute bound.
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -39,12 +50,39 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 
 MAIN = dict(arch="vicuna-7b", width=8, batch=4, prompt_len=512, tokens=64,
-            chunk=8, seed=0)
-KERNEL = {
-    "name": "verify_attention",
-    "route": "cuda",
-    "source": "src/repro_torch/kernels/csrc/verify_attention.cu",
-    "replaces": "src/repro/kernels/tree_attention.py:96",
+            chunk=8, seed=0, page_size=16)
+KERNELS = {
+    "verify_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/verify_attention.cu",
+        "replaces": "src/repro/kernels/tree_attention.py:96"},
+    "paged_tree_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/tree_attention.py:153"},
+    "paged_cache_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/tree_attention.py:285"},
+    "sparse_tree_attention_partial": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tree_partial.cu",
+        "replaces": "src/repro/kernels/sparse_tree.py:57"},
+}
+# serve runs of phase 4: label -> (mode, extra flags, the kernels each of its
+# forwards launches once per layer)
+SERVE_RUNS = {
+    "ghidorah": ("ghidorah", [], ("verify_attention",)),
+    "sequential": ("sequential", [], ("verify_attention",)),
+    "paged ghidorah": ("ghidorah", ["--paged"], ("paged_tree_attention",)),
+    "paged sequential": ("sequential", ["--paged"],
+                         ("paged_tree_attention",)),
+    "paged ghidorah int8": ("ghidorah", ["--paged", "--kv-dtype", "int8"],
+                            ("paged_tree_attention",)),
+    "paged ghidorah int8 sparse": (
+        "ghidorah", ["--paged", "--kv-dtype", "int8", "--tree-kernel",
+                     "sparse"],
+        ("paged_cache_attention", "sparse_tree_attention_partial")),
 }
 
 # tests/test_kernels.py CASES: B, W, Hq, Hkv, hd, S, pos, window
@@ -57,6 +95,16 @@ CASES = [
     (1, 32, 2, 2, 16, 8, 6, 0, "float32"),
     (4, 8, 4, 2, 32, 24, 20, 0, "float32"),
     (3, 4, 4, 4, 32, 16, 14, 8, "float32"),
+]
+# the window-0 CASES as page tables (paged caches take no window): page
+# size, pool dtype
+PAGED_FROM_CASES = [(0, 16, None), (1, 16, None), (1, 8, "bfloat16"),
+                    (2, 16, None), (4, 16, None), (5, 8, None), (6, 8, None)]
+# tests/test_kernels.py PAGED_INT8_CASES: B, W, Hq, Hkv, hd, ps, n_pages, maxp
+PAGED_INT8_CASES = [
+    (1, 1, 4, 4, 32, 8, 6, 2),
+    (2, 8, 4, 2, 64, 16, 10, 3),
+    (3, 4, 8, 1, 32, 4, 12, 4),
 ]
 
 
@@ -144,6 +192,157 @@ def needed_ops(args):
     B, W, Hq, hd = q.shape
     S = ck.shape[1]
     return 4 * B * Hq * W * (S + W) * hd      # q.k and p.v multiply-adds
+
+
+def paged_inputs(torch, np, *, B, W, Hq, Hkv, hd, ps, table, n_pages, fills,
+                 pool_dtype, q_dtype, seed, tree=None):
+    """Paged kernel operands on the card from a numpy seed.  Row b holds
+    positions [0, fills[b]) in the logical slots of its table (shuffled
+    pool pages, -1 = unreserved); the pool is random everywhere, the trash
+    page and unreserved pages included.  An int8 pool is quantized per
+    (page, kv head) as the reference's kernel tests do."""
+    rng = np.random.default_rng(seed)
+    P = n_pages + 1
+    maxp = table.shape[1]
+    key_pos = np.full((B, maxp * ps), -1, np.int32)
+    for b, f in enumerate(fills):
+        key_pos[b, :f] = np.arange(f)
+    mask, depth = tree if tree is not None else rand_tree(np, W, seed=ps)
+    q_pos = (np.asarray(fills)[:, None] + depth[None, :]).astype(np.int32)
+    qdt = getattr(torch, q_dtype)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, np.float32))
+
+    pool = rng.standard_normal((2, P, ps, Hkv, hd), np.float32)
+    if pool_dtype == "int8":
+        scale = (np.abs(pool).max(axis=(2, 4)) / 127.0).astype(np.float32)
+        codes = np.clip(np.round(pool / np.maximum(
+            scale, 1e-30)[:, :, None, :, None]), -127, 127).astype(np.int8)
+        pools = [torch.as_tensor(c).to(DEVICE) for c in codes]
+        scales = [torch.as_tensor(c).to(DEVICE) for c in scale]
+    else:
+        pdt = getattr(torch, pool_dtype)
+        pools = [torch.as_tensor(c).to(DEVICE, pdt) for c in pool]
+        scales = [None, None]
+    ints = {k: torch.as_tensor(v).to(DEVICE) for k, v in (
+        ("block_table", table.astype(np.int32)), ("key_pos", key_pos),
+        ("q_pos", q_pos), ("lo", np.full_like(q_pos, -1)))}
+    return dict(q=randn(B, W, Hq, hd).to(DEVICE, qdt), pool_k=pools[0],
+                pool_v=pools[1], scale_k=scales[0], scale_v=scales[1],
+                k_new=randn(B, W, Hkv, hd).to(DEVICE, qdt),
+                v_new=randn(B, W, Hkv, hd).to(DEVICE, qdt),
+                tree_mask=torch.as_tensor(mask).to(DEVICE), **ints)
+
+
+def paged_args(a, tree=True):
+    """The wrappers' positional operands: the fused walk's (tree=True) or
+    the cache-only walk's."""
+    walk = (a["block_table"], a["key_pos"], a["q_pos"], a["lo"])
+    head = (a["q"], a["pool_k"], a["pool_v"], a["scale_k"], a["scale_v"])
+    if not tree:
+        return head + walk
+    return head + (a["k_new"], a["v_new"]) + walk + (a["tree_mask"],)
+
+
+def paged_case_list(np):
+    """(label, kwargs of ``paged_inputs``) of the paged kernel check."""
+    out = []
+    for i, ps, pool in PAGED_FROM_CASES:
+        B, W, Hq, Hkv, hd, S, pos, _, dt = CASES[i]
+        rng = np.random.default_rng(100 + i)
+        maxp = -(-S // ps) + 1                 # a trailing -1 entry per row
+        n_pages = B * maxp + 2
+        table = np.full((B, maxp), -1, np.int32)
+        table[:, :-1] = rng.permutation(n_pages)[:B * (maxp - 1)].reshape(
+            B, maxp - 1)
+        fills = [min(max(pos - 2 * b, 1), S) for b in range(B)]
+        out.append((f"case {i} ps={ps}", dict(
+            B=B, W=W, Hq=Hq, Hkv=Hkv, hd=hd, ps=ps, table=table,
+            n_pages=n_pages, fills=fills, pool_dtype=pool or dt, q_dtype=dt,
+            seed=i, tree=rand_tree(np, W, seed=S))))
+    for i, (B, W, Hq, Hkv, hd, ps, n_pages, maxp) in enumerate(
+            PAGED_INT8_CASES):
+        rng = np.random.default_rng(B * W + n_pages)
+        table = np.full((B, maxp), -1, np.int32)
+        fills = []
+        for b in range(B):
+            n_res = int(rng.integers(1, maxp + 1))
+            table[b, :n_res] = rng.choice(n_pages, n_res, replace=False)
+            fills.append(int(rng.integers(1, n_res * ps + 1)))
+        out.append((f"int8 case {i}", dict(
+            B=B, W=W, Hq=Hq, Hkv=Hkv, hd=hd, ps=ps, table=table,
+            n_pages=n_pages, fills=fills, pool_dtype="int8",
+            q_dtype="float32", seed=50 + i)))
+    return out + [(label, kw) for label, kw in paged_main_shapes(np, 0)]
+
+
+def paged_main_shapes(np, seed):
+    """The paged kernels at the main path's shapes: B=4, Hq=Hkv=32,
+    hd=128, page size 16, 37 pages a row (the serve's reservation for
+    prompt + tokens + tree depth) shuffled across the pool, rows nearly
+    full at diverged positions; bf16 q; bf16 and int8 pools; verify W=8
+    and decode W=1."""
+    tree, depth, cfg = main_path_tree(np)
+    B, ps = MAIN["batch"], MAIN["page_size"]
+    maxp = -(-(MAIN["prompt_len"] + MAIN["tokens"] + depth) // ps)
+    n_pages = B * maxp
+    table = np.random.default_rng(seed).permutation(n_pages).reshape(
+        B, maxp).astype(np.int32)
+    fills = [MAIN["prompt_len"] + MAIN["tokens"] - 2 * b for b in range(B)]
+    common = dict(B=B, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                  hd=cfg.head_dim, ps=ps, table=table, n_pages=n_pages,
+                  fills=fills, q_dtype="bfloat16", seed=seed)
+    out = []
+    for pool in ("bfloat16", "int8"):
+        out.append((f"main {pool} pool verify W=8",
+                    dict(common, W=MAIN["width"], pool_dtype=pool,
+                         tree=tree)))
+        out.append((f"main {pool} pool decode W=1",
+                    dict(common, W=1, pool_dtype=pool,
+                         tree=(np.ones((1, 1), bool),
+                               np.zeros((1,), np.int32)))))
+    return out
+
+
+def paged_valid_slots(a):
+    """(B, S_logical) slots some query of the row may attend to, on a
+    reserved page (the slots the page walk must read)."""
+    kp = a["key_pos"]
+    ps = a["pool_k"].shape[1]
+    reserved = (a["block_table"] >= 0).repeat_interleave(ps, dim=1)
+    return (reserved & (kp >= 0)
+            & (kp[:, None, :] <= a["q_pos"][:, :, None]).any(dim=1))
+
+
+def paged_bytes(a, outs, cache=True, tree=True):
+    """Bytes a paged kernel must move: each input read once (the pool only
+    at the slots it must read, and an int8 pool's scales only for the pages
+    holding them), each output written once."""
+    small = [a["q"]] + list(outs)
+    if tree:
+        small += [a["k_new"], a["v_new"], a["tree_mask"]]
+    n = 0
+    if cache:
+        small += [a["block_table"], a["key_pos"], a["q_pos"], a["lo"]]
+        valid = paged_valid_slots(a)
+        n = int(valid.sum())
+        slot = a["pool_k"].shape[2] * a["pool_k"].shape[3] * \
+            a["pool_k"].element_size()
+        total = 2 * n * slot
+        if a["scale_k"] is not None:
+            ps = a["pool_k"].shape[1]
+            pages = int(valid.reshape(valid.shape[0], -1, ps).any(-1).sum())
+            total += 2 * pages * a["scale_k"].shape[1] * 4
+    else:
+        total = 0
+    return total + sum(t.numel() * t.element_size() for t in small), n
+
+
+def paged_ops(a, n_slots, cache=True, tree=True):
+    B, W, Hq, hd = a["q"].shape
+    keys = (n_slots if cache else 0) + (B * W if tree else 0)
+    return 4 * Hq * W * hd * keys          # q.k and p.v multiply-adds
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +433,75 @@ def phase_kernel_check(torch, np):
     return worst
 
 
-def phase_serve(torch, np):
+def _hold(torch, name, label, got, want, tol):
+    """Max abs error of a kernel's outputs against its plain version's;
+    raises unless every element is within ``tol`` (atol = rtol) and
+    finite."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        if not bool(torch.isclose(g, w, atol=tol, rtol=tol).all()) or \
+                not bool(torch.isfinite(g).all()):
+            raise SmokeError(f"{name} disagrees with its plain version at "
+                             f"{label}: max abs err {err:.3e} > {tol}")
+    return err
+
+
+def phase_paged_kernel_check(torch, np):
+    """The paged page walk, the cache-only walk and the tree partial
+    against their plain versions, at the tolerance of q's dtype (the
+    partials are fp32 whatever q's dtype)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import tree_partial as tp
+    worst = dict.fromkeys(("paged_tree_attention", "paged_cache_attention",
+                           "sparse_tree_attention_partial"), 0.0)
+    for label, kw in paged_case_list(np):
+        a = paged_inputs(torch, np, **kw)
+        tol = TOL[str(a["q"].dtype)]
+        tree_in = (a["q"], a["k_new"], a["v_new"], a["tree_mask"])
+        runs = {
+            "paged_tree_attention": (
+                pa.paged_tree_attention(*paged_args(a)),
+                plain.paged_tree_attention_plain(*paged_args(a))),
+            "paged_cache_attention": (
+                pa.paged_cache_attention(*paged_args(a, tree=False)),
+                plain.paged_cache_attention_plain(*paged_args(a, tree=False))),
+            "sparse_tree_attention_partial": (
+                tp.sparse_tree_attention_partial(*tree_in),
+                plain.sparse_tree_attention_partial_plain(*tree_in)),
+        }
+        torch.cuda.synchronize()
+        errs = []
+        for name, (got, want) in runs.items():
+            e = _hold(torch, name, label, got, want, tol)
+            worst[name] = max(worst[name], e)
+            errs.append(f"{e:.2e}")
+        log(f"paged kernels vs plain {label} q {kw['q_dtype']} pool "
+            f"{kw['pool_dtype']} B={kw['B']} W={kw['W']} Hq={kw['Hq']} "
+            f"Hkv={kw['Hkv']} hd={kw['hd']} ps={kw['ps']} "
+            f"pages/row={kw['table'].shape[1]}: max abs err fused {errs[0]} "
+            f"cache-only {errs[1]} tree partial {errs[2]}")
+    return worst
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by name: each counts its own
+    launches in ``.launches``."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import tree_partial as tp
     from repro_torch.kernels.verify_attention import verify_attention
+    return {"verify_attention": verify_attention,
+            "paged_tree_attention": pa.paged_tree_attention,
+            "paged_cache_attention": pa.paged_cache_attention,
+            "sparse_tree_attention_partial":
+                tp.sparse_tree_attention_partial}
+
+
+def phase_serve(torch, np):
     from repro_torch.launch import serve
 
     def argv(mode):
@@ -243,7 +509,8 @@ def phase_serve(torch, np):
                 "--width", str(MAIN["width"]), "--batch", str(MAIN["batch"]),
                 "--prompt-len", str(MAIN["prompt_len"]),
                 "--tokens", str(MAIN["tokens"]), "--chunk", str(MAIN["chunk"]),
-                "--seed", str(MAIN["seed"]), "--device", DEVICE]
+                "--seed", str(MAIN["seed"]), "--device", DEVICE,
+                "--page-size", str(MAIN["page_size"]), "--pool-pages", "0"]
 
     t0 = time.perf_counter()
     loaded = serve.load(serve.parse_args(argv("ghidorah")), with_heads=True)
@@ -256,31 +523,37 @@ def phase_serve(torch, np):
         f"params in {cfg.dtype}, random from seed {MAIN['seed']} "
         f"({time.perf_counter() - t0:.1f}s)")
 
-    results, launches = {}, 0
-    verify_attention.launches = 0          # counts from here on: main path
-    for mode in ("ghidorah", "sequential"):
-        before = verify_attention.launches
-        res = serve.run(serve.parse_args(argv(mode)), loaded)
+    wrappers = kernel_wrappers()
+    results = {}
+    launches = dict.fromkeys(wrappers, 0)
+    for label, (mode, flags, kernels) in SERVE_RUNS.items():
+        for fn in wrappers.values():          # counts from here: main path
+            fn.launches = 0
+        res = serve.run(serve.parse_args(argv(mode) + flags), loaded)
         torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
         stats = res["stats"]
-        got = verify_attention.launches - before
-        want = cfg.num_layers * stats["device_steps"]
         steps = stats["device_steps"]
+        want = cfg.num_layers * steps
         step_ms = 1e3 * sum(stats["step_times"]) / max(steps, 1)
-        log(f"{mode}: {stats['emitted_total']} tokens, "
+        log(f"{label} ({' '.join(flags) or 'dense cache'}): "
+            f"{stats['emitted_total']} tokens, "
             f"{stats['emitted_total'] / res['seconds']:.1f} tok/s, "
             f"{steps} steps, mean step {step_ms:.2f} ms, acceptance length "
-            f"{stats['acceptance_length']:.3f}, kernel launches {got} "
-            f"(= {cfg.num_layers} layers x {steps} steps: {got == want})")
+            f"{stats['acceptance_length']:.3f}, kernel launches {counts} "
+            f"(want {want} = {cfg.num_layers} layers x {steps} steps for "
+            f"{', '.join(kernels)}, 0 for the others)")
         if stats["emitted_total"] != MAIN["batch"] * MAIN["tokens"]:
-            raise SmokeError(f"{mode} emitted {stats['emitted_total']} "
+            raise SmokeError(f"{label} emitted {stats['emitted_total']} "
                              f"tokens, expected "
                              f"{MAIN['batch'] * MAIN['tokens']}")
-        if got != want or got == 0:
-            raise SmokeError(f"{mode}: {got} verify_attention launches, "
-                             f"expected {want} (layers x steps)")
-        results[mode] = dict(res, step_ms=step_ms)
-        launches = verify_attention.launches
+        for name, got in counts.items():
+            if got != (want if name in kernels else 0) or \
+                    (name in kernels and got == 0):
+                raise SmokeError(f"{label}: {got} {name} launches, expected "
+                                 f"{want if name in kernels else 0}")
+            launches[name] += got
+        results[label] = dict(res, step_ms=step_ms, counts=counts)
     check_outputs(torch, np, loaded, results)
     return launches, results
 
@@ -293,41 +566,137 @@ def _leaves(tree):
             yield v
 
 
+# (reference run, run compared with it) of phase 4's report
+AGREEMENT = [("sequential", "ghidorah"), ("ghidorah", "paged ghidorah"),
+             ("sequential", "paged sequential"),
+             ("paged ghidorah", "paged ghidorah int8"),
+             ("paged ghidorah int8", "paged ghidorah int8 sparse")]
+
+
 def check_outputs(torch, np, loaded, results):
-    """Teacher-forced logits over prompt + the sequential stream: all
-    finite; report how far ghidorah and sequential agree and the logit
-    margin where they first differ (reported, not gated, at bf16)."""
-    seq, spec = results["sequential"]["out"], results["ghidorah"]["out"]
+    """Every stream in range; teacher-forced logits over prompt + each
+    reference stream all finite; report how far each pair of runs agrees
+    and the logit margin where they first differ (reported, not gated: bf16
+    on the card sums in another order than the plain path)."""
     prompts = results["sequential"]["prompts"]
-    if seq.shape != spec.shape or (seq < 0).any() or (spec < 0).any():
-        raise SmokeError(f"bad token arrays: {seq.shape} {spec.shape}")
-    if (seq >= loaded.cfg.vocab_size).any():
-        raise SmokeError("token id out of range")
-    full = torch.as_tensor(np.concatenate([prompts, seq[:, :-1]], axis=1),
-                           device=loaded.device)
-    with torch.no_grad():
-        logits, _, _ = loaded.model.prefill(loaded.params, {"tokens": full},
-                                            return_cache=False)
     P = prompts.shape[1]
-    lg = logits[:, P - 1:].float()                       # predicts seq[:, i]
-    if not bool(torch.isfinite(logits).all()):
-        raise SmokeError("non-finite logits on the served tokens")
-    tf = lg.argmax(-1).cpu().numpy()
-    log(f"logits finite over {tuple(logits.shape)}; teacher-forced greedy "
-        f"agrees with the sequential stream on "
-        f"{float((tf == seq).mean()):.4f} of tokens")
-    agree = float((seq == spec).mean())
-    margins = []
-    for b in range(seq.shape[0]):
-        diff = np.nonzero(seq[b] != spec[b])[0]
-        if diff.size:
-            i = int(diff[0])
-            row = lg[b, i]
-            margins.append((b, i, float(row[int(seq[b, i])]
-                                        - row[int(spec[b, i])])))
-    log(f"ghidorah vs sequential: {agree:.4f} of tokens agree; first "
-        f"disagreement (row, index, logit margin seq-spec): "
-        f"{margins if margins else 'none'}")
+    shape = results["sequential"]["out"].shape
+    for label, res in results.items():
+        out = res["out"]
+        if out.shape != shape or (out < 0).any() or \
+                (out >= loaded.cfg.vocab_size).any():
+            raise SmokeError(f"bad token array from {label}: {out.shape}")
+    forced = {}
+
+    def teacher(label):
+        """Logits predicting each token of ``label``'s stream from prompt +
+        the stream before it (B, tokens, V)."""
+        if label not in forced:
+            seq = results[label]["out"]
+            full = torch.as_tensor(np.concatenate([prompts, seq[:, :-1]],
+                                                  axis=1),
+                                   device=loaded.device)
+            with torch.no_grad():
+                logits, _, _ = loaded.model.prefill(
+                    loaded.params, {"tokens": full}, return_cache=False)
+            if not bool(torch.isfinite(logits).all()):
+                raise SmokeError(f"non-finite logits on the {label} stream")
+            forced[label] = logits[:, P - 1:].float()
+            del logits
+        return forced[label]
+
+    seq = results["sequential"]["out"]
+    tf = teacher("sequential").argmax(-1).cpu().numpy()
+    log(f"logits finite; teacher-forced greedy agrees with the sequential "
+        f"stream on {float((tf == seq).mean()):.4f} of tokens")
+    for ref, other in AGREEMENT:
+        a, b = results[ref]["out"], results[other]["out"]
+        lg = teacher(ref)
+        margins = []
+        for row in range(a.shape[0]):
+            diff = np.nonzero(a[row] != b[row])[0]
+            if diff.size:
+                i = int(diff[0])
+                margins.append((row, i, float(lg[row, i, int(a[row, i])]
+                                              - lg[row, i, int(b[row, i])])))
+        agree = float((a == b).mean())
+        results[other].setdefault("agree", {})[ref] = agree
+        log(f"{other} vs {ref}: {agree:.4f} of tokens agree; first "
+            f"disagreement (row, index, logit margin {ref} - {other}): "
+            f"{margins if margins else 'none'}")
+
+
+def sdpa_inputs(torch, args):
+    """``scaled_dot_product_attention`` operands computing the fused verify
+    of a dense cache: cache and tree keys side by side, one boolean mask."""
+    q, ck, cv, kn, vn, key_pos, q_pos, lo, mask = args
+    B, W = q.shape[:2]
+    ok = ((key_pos[:, None, :] >= 0)
+          & (key_pos[:, None, :] <= q_pos[:, :, None])
+          & (key_pos[:, None, :] > lo[:, :, None]))           # (B, W, S)
+    m = torch.cat([ok, mask[None].expand(B, W, W)], dim=2)[:, None]
+    G = q.shape[2] // ck.shape[2]              # query head h*G+g reads h
+    k = torch.cat([ck, kn], dim=1).transpose(1, 2)
+    v = torch.cat([cv, vn], dim=1).transpose(1, 2)
+    return (q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(G, dim=1).contiguous(),
+            v.repeat_interleave(G, dim=1).contiguous(), m)
+
+
+def timed(torch, fn, sets, iters=50, warm=5):
+    """Mean ms per call over ``iters`` calls cycling ``sets`` (CUDA
+    events), after ``warm`` calls."""
+    for i in range(warm):
+        fn(sets[i % len(sets)])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(iters):
+        fn(sets[i % len(sets)])
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+# device-side symbol of each kernel (its time in a torch.profiler trace)
+SYMBOLS = {"verify_attention": "verify_attention_kernel",
+           "paged_tree_attention": "paged_attention_kernel",
+           "paged_cache_attention": "paged_attention_kernel",
+           "sparse_tree_attention_partial": "tree_partial_kernel"}
+
+
+def device_ms(torch, fn, sets, symbol, iters=20):
+    """Mean device time of one launch of the kernel whose symbol contains
+    ``symbol``, from a torch.profiler trace of ``iters`` calls: the time of
+    the kernel alone, without the host's share of the call (CUDA events
+    around a loop of calls measure the slower of the two).  The profiler
+    may drop a launch at the edge of its window, so the mean is over the
+    launches it recorded, which must be most of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(sets[i % len(sets)])
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and symbol in e.name]
+    if len(spans) < iters // 2:
+        raise SmokeError(f"the profiler saw {len(spans)} launches of "
+                         f"{symbol}, expected {iters}")
+    return sum(spans) / 1e3 / len(spans)
+
+
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of ``dtype``."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_OPS_PER_S[str(dtype)]
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
 
 
 def phase_timing(torch, np, card):
@@ -335,63 +704,146 @@ def phase_timing(torch, np, card):
     from repro_torch.kernels.verify_attention import verify_attention
     import torch.nn.functional as F
 
-    def sdpa_inputs(args):
-        q, ck, cv, kn, vn, key_pos, q_pos, lo, mask = args
-        B, W = q.shape[:2]
-        ok = ((key_pos[:, None, :] >= 0)
-              & (key_pos[:, None, :] <= q_pos[:, :, None])
-              & (key_pos[:, None, :] > lo[:, :, None]))       # (B, W, S)
-        m = torch.cat([ok, mask[None].expand(B, W, W)], dim=2)[:, None]
-        k = torch.cat([ck, kn], dim=1).transpose(1, 2).contiguous()
-        v = torch.cat([cv, vn], dim=1).transpose(1, 2).contiguous()
-        return q.transpose(1, 2).contiguous(), k, v, m
-
-    def timed(fn, sets, iters=50, warm=5):
-        for i in range(warm):
-            fn(sets[i % len(sets)])
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for i in range(iters):
-            fn(sets[i % len(sets)])
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
-
     rows = {}
     for label, kw in main_shapes(np):
         # 4 input sets (> the 50 MB L2 together) cycled, so every launch
         # reads its cache from device memory as the serving step does
         sets = [attention_inputs(torch, np, seed=100 + r, **kw)
                 for r in range(4)]
-        lib_sets = [sdpa_inputs(a) for a in sets]
+        lib_sets = [sdpa_inputs(torch, a) for a in sets]
         ref = tree_attention_plain(*sets[0])
         lib = F.scaled_dot_product_attention(*lib_sets[0][:3],
                                              attn_mask=lib_sets[0][3])
         lib_err = float((lib.transpose(1, 2).float() - ref.float()).abs()
                         .max())
-        kernel_ms = timed(lambda a: verify_attention(*a), sets)
-        plain_ms = timed(lambda a: tree_attention_plain(*a), sets)
-        library_ms = timed(lambda a: F.scaled_dot_product_attention(
+        kernel_ms = timed(torch, lambda a: verify_attention(*a), sets)
+        dev_ms = device_ms(torch, lambda a: verify_attention(*a), sets,
+                           SYMBOLS["verify_attention"])
+        plain_ms = timed(torch, lambda a: tree_attention_plain(*a), sets)
+        library_ms = timed(torch, lambda a: F.scaled_dot_product_attention(
             a[0], a[1], a[2], attn_mask=a[3]), lib_sets)
         nbytes, slots = needed_bytes(torch, sets[0], ref)
         ops = needed_ops(sets[0])
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops / PEAK_OPS_PER_S[str(sets[0][0].dtype)]
-        bound_ms = max(bytes_ms, ops_ms)
-        rows[label] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by="bytes" if bytes_ms >= ops_ms
-                           else "operations", bytes=nbytes, ops=ops)
-        log(f"timing {label} ({card}): kernel_ms {kernel_ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library_ms {library_ms:.4f} (sdpa, max abs "
+        bound_ms, bound_by = bound(nbytes, ops, sets[0][0].dtype)
+        rows[label] = dict(kernel_ms=kernel_ms, device_ms=dev_ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bytes=nbytes, ops=ops)
+        log(f"timing {label} ({card}): kernel_ms {kernel_ms:.4f} (device "
+            f"{dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} (sdpa, max abs "
             f"diff to plain {lib_err:.2e}) bound_ms {bound_ms:.4f} "
-            f"({rows[label]['bound_by']}: {nbytes / 1e6:.2f} MB over "
+            f"({bound_by}: {nbytes / 1e6:.2f} MB over "
             f"{slots} valid cache slots, {ops / 1e9:.3f} GFLOP); "
             f"{kernel_ms / bound_ms:.1f}x the bound")
         del sets, lib_sets
     return rows
+
+
+def phase_paged_timing(torch, np, card):
+    """The paged kernels at the main path's shapes: the fused walk with a
+    bf16 and an int8 pool at verify W=8 and decode W=1, the cache-only walk
+    (int8) and the tree partial at W=8.  Each cycles 4 input sets with
+    their own shuffled tables (> the 50 MB L2 together).  The library call
+    of the fused walk over a float pool is ``scaled_dot_product_attention``
+    over the view already gathered through the table (the gather left out
+    of its time); the int8 walk, the cache-only walk and the tree partial
+    have no single PyTorch call."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import tree_partial as tp
+    from repro_torch.runtime.cache import gather_pages
+    import torch.nn.functional as F
+
+    shapes = {}
+    for r in range(4):
+        for label, kw in paged_main_shapes(np, seed=r):
+            shapes.setdefault(label, []).append(kw)
+    rows = {}
+
+    def record(key, name, kernel_fn, plain_fn, sets, outs, cache, tree,
+               library_ms=None, note=""):
+        kernel_ms = timed(torch, kernel_fn, sets)
+        dev_ms = device_ms(torch, kernel_fn, sets, SYMBOLS[name])
+        plain_ms = timed(torch, plain_fn, sets)
+        nbytes, slots = paged_bytes(sets[0], outs, cache=cache, tree=tree)
+        ops = paged_ops(sets[0], slots, cache=cache, tree=tree)
+        bound_ms, bound_by = bound(nbytes, ops, sets[0]["q"].dtype)
+        rows[key] = dict(kernel_ms=kernel_ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         ops=ops)
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        log(f"timing {key} ({card}): kernel_ms {kernel_ms:.4f} (device "
+            f"{dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {lib}{note} "
+            f"bound_ms "
+            f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB over "
+            f"{slots} valid cache slots, {ops / 1e9:.3f} GFLOP); "
+            f"{kernel_ms / bound_ms:.1f}x the bound")
+
+    for pool in ("bfloat16", "int8"):
+        for W, kind in ((MAIN["width"], "verify"), (1, "decode")):
+            label = f"main {pool} pool {kind} W={W}"
+            sets = [paged_inputs(torch, np, **dict(kw, seed=200 + r))
+                    for r, kw in enumerate(shapes[label])]
+            ref = plain.paged_tree_attention_plain(*paged_args(sets[0]))
+            library_ms, note = None, ""
+            if pool == "bfloat16":
+                lib_sets = [sdpa_inputs(torch, (
+                    a["q"], gather_pages(a["pool_k"], a["block_table"]),
+                    gather_pages(a["pool_v"], a["block_table"]),
+                    a["k_new"], a["v_new"], a["key_pos"], a["q_pos"],
+                    a["lo"], a["tree_mask"])) for a in sets]
+                lib = F.scaled_dot_product_attention(
+                    *lib_sets[0][:3], attn_mask=lib_sets[0][3])
+                lib_err = float((lib.transpose(1, 2).float()
+                                 - ref.float()).abs().max())
+                library_ms = timed(
+                    torch, lambda a: F.scaled_dot_product_attention(
+                        a[0], a[1], a[2], attn_mask=a[3]), lib_sets)
+                note = (f" (sdpa over the gathered view, gather not timed; "
+                        f"max abs diff to plain {lib_err:.2e})")
+                del lib_sets
+            record(f"B2 {pool} pool W={W}", "paged_tree_attention",
+                   lambda a: pa.paged_tree_attention(*paged_args(a)),
+                   lambda a: plain.paged_tree_attention_plain(
+                       *paged_args(a)),
+                   sets, [ref], cache=True, tree=True,
+                   library_ms=library_ms, note=note)
+            if W > 1 and pool == "int8":
+                parts = plain.paged_cache_attention_plain(
+                    *paged_args(sets[0], tree=False))
+                record("B3 int8 pool W=8", "paged_cache_attention",
+                       lambda a: pa.paged_cache_attention(
+                           *paged_args(a, tree=False)),
+                       lambda a: plain.paged_cache_attention_plain(
+                           *paged_args(a, tree=False)),
+                       sets, parts, cache=True, tree=False)
+            if W > 1 and pool == "bfloat16":
+                def tree_in(a):
+                    return a["q"], a["k_new"], a["v_new"], a["tree_mask"]
+                parts = plain.sparse_tree_attention_partial_plain(
+                    *tree_in(sets[0]))
+                record("B4 W=8", "sparse_tree_attention_partial",
+                       lambda a: tp.sparse_tree_attention_partial(
+                           *tree_in(a)),
+                       lambda a: plain.sparse_tree_attention_partial_plain(
+                           *tree_in(a)),
+                       sets, parts, cache=False, tree=True)
+            del sets
+    return rows
+
+
+def kernel_entry(name, launches, max_err, row, card, **extra):
+    """One entry of the ``{"kernels": [...]}`` line: ``ms`` is the kernel's
+    device time (profiler), ``kernel_ms`` the time of a call (CUDA events
+    around a loop of calls, the host's share included)."""
+    return dict(KERNELS[name], name=name, launches=launches[name],
+                max_abs_err=max_err, max_err=max_err, ms=row["device_ms"],
+                device_ms=row["device_ms"], kernel_ms=row["kernel_ms"],
+                plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], card=card, **extra)
 
 
 def main():
@@ -408,22 +860,45 @@ def main():
     card = phase_device(torch)
     phase_build()
     max_err = phase_kernel_check(torch, np)
+    paged_err = phase_paged_kernel_check(torch, np)
     launches, served = phase_serve(torch, np)
-    layers = launches // max(sum(r["stats"]["device_steps"]
-                                 for r in served.values()), 1)
-    log(f"verify_attention launches per serve step: {layers}")
     timing = phase_timing(torch, np, card)
-    t = timing["verify W=8"]
-    d = timing["decode W=1"]
-    entry = dict(KERNEL, launches=launches, max_abs_err=max_err,
-                 max_err=max_err, ms=t["kernel_ms"],
-                 kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"],
-                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                 library_ms=t["library_ms"],
-                 decode_ms=d["kernel_ms"], decode_plain_ms=d["plain_ms"],
-                 decode_library_ms=d["library_ms"],
-                 decode_bound_ms=d["bound_ms"], card=card)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    paged = phase_paged_timing(torch, np, card)
+    t, d = timing["verify W=8"], timing["decode W=1"]
+    b2, b2d = paged["B2 bfloat16 pool W=8"], paged["B2 bfloat16 pool W=1"]
+    i8, i8d = paged["B2 int8 pool W=8"], paged["B2 int8 pool W=1"]
+    entries = [
+        kernel_entry("verify_attention", launches, max_err, t, card,
+                     decode_ms=d["kernel_ms"],
+                     decode_device_ms=d["device_ms"],
+                     decode_plain_ms=d["plain_ms"],
+                     decode_library_ms=d["library_ms"],
+                     decode_bound_ms=d["bound_ms"]),
+        kernel_entry("paged_tree_attention", launches,
+                     paged_err["paged_tree_attention"], b2, card,
+                     decode_ms=b2d["kernel_ms"],
+                     decode_device_ms=b2d["device_ms"],
+                     decode_plain_ms=b2d["plain_ms"],
+                     decode_library_ms=b2d["library_ms"],
+                     decode_bound_ms=b2d["bound_ms"],
+                     int8_ms=i8["kernel_ms"], int8_device_ms=i8["device_ms"],
+                     int8_plain_ms=i8["plain_ms"],
+                     int8_bound_ms=i8["bound_ms"],
+                     int8_decode_ms=i8d["kernel_ms"],
+                     int8_decode_device_ms=i8d["device_ms"],
+                     int8_decode_plain_ms=i8d["plain_ms"],
+                     int8_decode_bound_ms=i8d["bound_ms"]),
+        kernel_entry("paged_cache_attention", launches,
+                     paged_err["paged_cache_attention"],
+                     paged["B3 int8 pool W=8"], card),
+        kernel_entry("sparse_tree_attention_partial", launches,
+                     paged_err["sparse_tree_attention_partial"],
+                     paged["B4 W=8"], card),
+    ]
+    steps = {label: r["stats"]["device_steps"] for label, r in served.items()}
+    log(f"serve steps per run: {steps}; launches over the serve runs: "
+        f"{launches}")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

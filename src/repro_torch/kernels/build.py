@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, for Hopper (``sm_90a``), at first use.  The libraries go
 into ``kernels/_build/`` (listed in ``.gitignore``), named by a hash of the
-source and flags, so an edited source is rebuilt and a built one is reused.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and a built one is reused.
 Nothing here runs at import: the CPU tests import every module, and the CPU
 machine has no ``nvcc``.
 """
@@ -19,7 +20,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("verify_attention",)
+SOURCES = ("verify_attention", "paged_attention", "tree_partial")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,8 +44,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -13,17 +13,17 @@
 // can arise; a row that sees no valid cache slot keeps m = NEG_INF until
 // the tree part (which always holds the node itself) arrives.
 //
-// Design.  One thread block per (batch row b, kv head h).  The G*W query
-// rows that read kv head h (query head h*G + g, row r = g*W + w, the
-// reference's grouping) sit in shared memory in fp32 with their o, m and l
-// accumulators.  A loop inside the block walks the S + W keys in tiles of
-// `tile`: key j < S is cache slot j, key j >= S is tree node j - S, so the
-// tree block is simply the last tile(s) of the same walk.  That loop takes
-// the place of the TPU kernel's sequential grid axis.  Per tile: 16-byte
-// vector loads of K and V into shared memory (converted to fp32), scores
-// q.k on the CUDA cores, a warp-per-row online-softmax update, then
-// o = o * corr + p @ V.  The ragged cache edge is masked here, never padded
-// by the caller.
+// Design.  One thread block per (batch row b, kv head h), with the shared
+// pieces of attention_common.cuh: the G*W query rows that read kv head h
+// (query head h*G + g, row r = g*W + w, the reference's grouping) sit in
+// shared memory in fp32 with their o, m and l accumulators.  A loop inside
+// the block walks the S cache slots in tiles of `tile` (16-byte vector
+// loads of K and V into shared memory, converted to fp32; empty slots,
+// key_pos < 0, are neither loaded nor attended), then the W tree nodes
+// (attend_tree); that loop takes the place of the TPU kernel's sequential
+// grid axis.  Per tile: scores q.k on the CUDA cores, a warp-per-row
+// online-softmax update, then o = o * corr + p @ V.  The ragged cache edge
+// is masked here, never padded by the caller.
 //
 // Bound on an H100.  The work is bytes-bound: the cache K and V of the row,
 // read once, dominate (at the main path's vicuna-7b shape, B=4, S~600,
@@ -35,56 +35,11 @@
 // walks its whole row with synchronous loads, so it is latency-bound well
 // above the byte bound.  A split-KV pass with an Eq.-1 merge, cp.async/TMA
 // double buffering and wgmma are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// elements per 16-byte vector load
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_f32(e[i]);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using namespace attn;
 
 template <typename T>
 struct Args {
@@ -102,172 +57,68 @@ struct Args {
   float scale;
 };
 
-// Shared memory of one block, in bytes (the host sizes the launch with it).
-size_t smem_bytes(int G, int W, int hd, int tile) {
-  const size_t GW = (size_t)G * W;
-  const size_t floats = 2 * GW * hd              // q rows, o accumulator
-                        + (size_t)tile * (hd + 1)  // K tile (padded rows)
-                        + (size_t)tile * hd        // V tile
-                        + GW * tile                // scores / probabilities
-                        + 3 * GW;                  // m, l, correction
-  const size_t ints = (size_t)tile + 2 * W;        // key_pos tile, q_pos, lo
-  const size_t bytes = (size_t)W * W + GW * tile;  // tree mask, valid flags
-  return floats * 4 + ints * 4 + bytes;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) verify_attention_kernel(Args<T> a) {
   extern __shared__ float smem[];
-  constexpr int VN = Vec<T>::N;
   const int b = blockIdx.x / a.Hkv;
   const int h = blockIdx.x % a.Hkv;
   const int W = a.W, hd = a.hd, S = a.S, TS = a.tile;
   const int G = a.Hq / a.Hkv;
   const int GW = G * W;
-  const int kstride = hd + 1;  // padded K rows: conflict-free q.k reads
-  const int nvec = hd / VN;
-  const int total = S + W;
   const int tid = threadIdx.x;
+  const Smem s = carve(smem, GW, W, hd, TS);
 
-  float* sq = smem;
-  float* so = sq + GW * hd;
-  float* sk = so + GW * hd;
-  float* sv = sk + TS * kstride;
-  float* sp = sv + TS * hd;
-  float* sm = sp + GW * TS;
-  float* sl = sm + GW;
-  float* sc = sl + GW;
-  int* skp = reinterpret_cast<int*>(sc + GW);
-  int* sqp = skp + TS;
-  int* slo = sqp + W;
-  uint8_t* smask = reinterpret_cast<uint8_t*>(slo + W);
-  uint8_t* sok = smask + W * W;
-
-  // query rows r = g*W + w <- q[b, w, h*G + g, :]
-  for (int i = tid; i < GW * nvec; i += kThreads) {
-    const int r = i / nvec, c = (i % nvec) * VN;
-    const int g = r / W, w = r % W;
-    load_vec(a.q + ((size_t)(b * W + w) * a.Hq + h * G + g) * hd + c,
-             sq + r * hd + c);
-  }
-  for (int i = tid; i < GW * hd; i += kThreads) so[i] = 0.f;
-  for (int r = tid; r < GW; r += kThreads) {
-    sm[r] = kNegInf;
-    sl[r] = 0.f;
-  }
+  load_queries(s, a.q, b, h, W, a.Hq, G, hd);
   for (int w = tid; w < W; w += kThreads) {
-    sqp[w] = a.q_pos[b * W + w];
-    slo[w] = a.lo[b * W + w];
+    s.qpos[w] = a.q_pos[b * W + w];
+    s.lo[w] = a.lo[b * W + w];
   }
-  for (int i = tid; i < W * W; i += kThreads) smask[i] = a.mask[i];
+  for (int i = tid; i < W * W; i += kThreads) s.mask[i] = a.mask[i];
   __syncthreads();
 
-  const int warp = tid / 32, lane = tid % 32;
-  constexpr int kWarps = kThreads / 32;
+  constexpr int VN = Vec<T>::N;
+  const int nvec = hd / VN, kstride = hd + 1;
+  for (int j0 = 0; j0 < S; j0 += TS) {
+    for (int t = tid; t < TS; t += kThreads) {
+      const int j = j0 + t;
+      s.kp[t] = j < S ? a.key_pos[(size_t)b * S + j] : -1;
+    }
+    __syncthreads();
 
-  for (int j0 = 0; j0 < total; j0 += TS) {
-    // ---- K/V tile: cache slots first, then the tree nodes, zero past end
+    // ---- K/V tile; empty slots and the ragged edge are zero
     for (int i = tid; i < TS * nvec; i += kThreads) {
       const int t = i / nvec, c = (i % nvec) * VN;
-      const int j = j0 + t;
       float kf[VN], vf[VN];
-      if (j < S) {
-        const size_t off = ((size_t)(b * S + j) * a.Hkv + h) * hd + c;
+      if (s.kp[t] >= 0) {
+        const size_t off = ((size_t)(b * S + j0 + t) * a.Hkv + h) * hd + c;
         load_vec(a.ck + off, kf);
         load_vec(a.cv + off, vf);
-      } else if (j < total) {
-        const size_t off = ((size_t)(b * W + (j - S)) * a.Hkv + h) * hd + c;
-        load_vec(a.kn + off, kf);
-        load_vec(a.vn + off, vf);
       } else {
 #pragma unroll
         for (int e = 0; e < VN; ++e) kf[e] = vf[e] = 0.f;
       }
 #pragma unroll
       for (int e = 0; e < VN; ++e) {
-        sk[t * kstride + c + e] = kf[e];
-        sv[t * hd + c + e] = vf[e];
+        s.k[t * kstride + c + e] = kf[e];
+        s.v[t * hd + c + e] = vf[e];
       }
     }
-    for (int t = tid; t < TS; t += kThreads) {
-      const int j = j0 + t;
-      skp[t] = j < S ? a.key_pos[(size_t)b * S + j] : -1;
-    }
-    __syncthreads();
-
-    // ---- masked scores
+    // ---- validity: filled, causal, inside the window
     for (int i = tid; i < GW * TS; i += kThreads) {
-      const int r = i / TS, t = i % TS;
-      const int w = r % W, j = j0 + t;
-      bool ok;
-      if (j < S) {
-        const int kp = skp[t];
-        ok = kp >= 0 && kp <= sqp[w] && kp > slo[w];
-      } else if (j < total) {
-        ok = smask[w * W + (j - S)] != 0;
-      } else {
-        ok = false;
-      }
-      float s = kNegInf;
-      if (ok) {
-        const float* qr = sq + r * hd;
-        const float* kr = sk + t * kstride;
-        float acc = 0.f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
-        s = acc * a.scale;
-      }
-      sp[i] = s;
-      sok[i] = ok;
+      const int r = i / TS, t = i % TS, w = r % W;
+      const int kp = s.kp[t];
+      s.ok[i] = kp >= 0 && kp <= s.qpos[w] && kp > s.lo[w];
     }
     __syncthreads();
-
-    // ---- online-softmax update, one warp per query row
-    for (int r = warp; r < GW; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < TS; t += 32) mx = fmaxf(mx, sp[r * TS + t]);
-      mx = warp_max(mx);
-      const float m_old = sm[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < TS; t += 32) {
-        const float p = sok[r * TS + t] ? expf(sp[r * TS + t] - m_new) : 0.f;
-        sp[r * TS + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sc[r] = corr;
-        sl[r] = sl[r] * corr + sum;
-        sm[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- o = o * corr + p @ V
-    for (int i = tid; i < GW * hd; i += kThreads) {
-      const int r = i / hd, d = i % hd;
-      const float* pr = sp + r * TS;
-      float acc = so[i] * sc[r];
-      for (int t = 0; t < TS; ++t) acc = fmaf(pr[t], sv[t * hd + d], acc);
-      so[i] = acc;
-    }
-    __syncthreads();
+    attend_tile(s, GW, TS, hd, a.scale);
   }
-
-  // ---- normalize and store in q's layout
-  for (int i = tid; i < GW * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    const int g = r / W, w = r % W;
-    const float inv = 1.0f / fmaxf(sl[r], 1e-30f);
-    a.out[((size_t)(b * W + w) * a.Hq + h * G + g) * hd + d] =
-        from_f32<T>(so[i] * inv);
-  }
+  attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, GW, hd, TS, a.scale);
+  store_normalized(s, a.out, b, h, W, a.Hq, G, hd);
 }
 
 template <typename T>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.Hq / a.Hkv, a.W, a.hd, a.tile);
+  const size_t smem = smem_bytes(a.Hq / a.Hkv * a.W, a.W, a.hd, a.tile);
   cudaError_t err = cudaFuncSetAttribute(
       verify_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -307,8 +158,8 @@ int run(const void* q, const void* ck, const void* cv, const void* kn,
 
 extern "C" {
 
-size_t verify_attention_smem_bytes(int G, int W, int hd, int tile) {
-  return smem_bytes(G, W, hd, tile);
+size_t verify_attention_smem_bytes(int GW, int W, int hd, int tile) {
+  return attn::smem_bytes(GW, W, hd, tile);
 }
 
 const char* verify_attention_error_string(int err) {

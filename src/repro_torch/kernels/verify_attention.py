@@ -16,10 +16,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import check_common, launch, pick_tile
 from repro_torch.kernels.plain import tree_attention_plain
 
-SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
-TILES = (64, 32, 16)          # keys per tile, largest that fits first
 _DTYPES = {torch.float32: "verify_attention_f32",
            torch.bfloat16: "verify_attention_bf16"}
 _P = ctypes.c_void_p
@@ -75,24 +74,8 @@ def _check(q, ck, cv, k_new, v_new, key_pos, q_pos, lo, tree_mask):
         raise ValueError(f"head_dim {hd} must be a multiple of 8 "
                          f"(16-byte vector loads)")
     tensors = (q, ck, cv, k_new, v_new, key_pos, q_pos, lo, tree_mask)
-    for t in tensors:
-        if t.device != q.device:
-            raise ValueError(f"all operands must be on {q.device}, "
-                             f"found {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("verify_attention needs contiguous operands")
-    for t in tensors[:5]:
-        if t.data_ptr() % 16:
-            raise ValueError("K/V/q operands must be 16-byte aligned")
+    check_common(q, tensors, tensors[:5])
     return B, W, Hq, Hkv, hd, S
-
-
-def _tile(lib, G, W, hd):
-    for tile in TILES:
-        if lib.verify_attention_smem_bytes(G, W, hd, tile) <= SMEM_LIMIT:
-            return tile
-    raise ValueError(f"G*W={G * W} query rows at head_dim {hd} do not fit "
-                     f"one block's shared memory")
 
 
 def verify_attention(q, ck, cv, k_new, v_new, key_pos, q_pos, lo,
@@ -107,19 +90,13 @@ def verify_attention(q, ck, cv, k_new, v_new, key_pos, q_pos, lo,
     B, W, Hq, Hkv, hd, S = _check(q, ck, cv, k_new, v_new, key_pos, q_pos,
                                   lo, tree_mask)
     lib = _bind()
-    tile = _tile(lib, Hq // Hkv, W, hd)
+    tile = pick_tile(lib.verify_attention_smem_bytes, Hq // Hkv * W, W, hd)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _DTYPES[q.dtype])(
-            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), key_pos.data_ptr(), q_pos.data_ptr(),
-            lo.data_ptr(), tree_mask.data_ptr(), out.data_ptr(),
-            B, W, Hq, Hkv, hd, S, tile, hd ** -0.5, stream)
-    if err:
-        msg = lib.verify_attention_error_string(err).decode()
-        raise RuntimeError(f"verify_attention launch failed: CUDA error "
-                           f"{err} ({msg})")
+    launch("verify_attention", getattr(lib, _DTYPES[q.dtype]),
+           lib.verify_attention_error_string, q.device,
+           *(t.data_ptr() for t in (q, ck, cv, k_new, v_new, key_pos, q_pos,
+                                    lo, tree_mask, out)),
+           B, W, Hq, Hkv, hd, S, tile, hd ** -0.5)
     verify_attention.launches += 1
     return out
 

@@ -6,7 +6,7 @@ by kernel class and by kernel, per decode step.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch vicuna-7b --mode ghidorah --width 8 --batch 4 \\
-      --prompt-len 512 --tokens 64 --chunk 8
+      --prompt-len 512 --tokens 64 --chunk 8 [--paged --kv-dtype int8 ...]
 
 Needs a GPU; it exits non-zero if the profiler records no device activity.
 """
@@ -25,6 +25,8 @@ from repro_torch.launch import serve
 
 _CLASSES = (
     ("verify_attention", ("verify_attention",)),
+    ("paged walk (B2/B3)", ("paged_attention_kernel",)),
+    ("tree partial (B4)", ("tree_partial_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
 )
@@ -80,9 +82,13 @@ def main(argv=None):
         by_class[_class(e.name)] += us
         by_name[e.name] += us
         count[e.name] += 1
+    paged = (f" --paged --page-size {args.page_size} --kv-dtype "
+             f"{args.kv_dtype} --tree-kernel {args.tree_kernel}"
+             if args.paged else "")
     print(f"[profile] {card}; {args.arch} --mode {args.mode} "
           f"--width {args.width} --batch {args.batch} --prompt-len "
-          f"{args.prompt_len} --tokens {args.tokens} --chunk {args.chunk}")
+          f"{args.prompt_len} --tokens {args.tokens} --chunk {args.chunk}"
+          f"{paged}")
     print(f"[profile] wall {wall_us / 1e3:.2f} ms (prefill + {steps} decode "
           f"steps), device busy {busy / 1e3:.2f} ms, idle share "
           f"{1 - busy / wall_us:.3f}, {len(dev)} device activities "

@@ -4,10 +4,13 @@
 The tree-verify path is the heart of Ghidorah: the W speculative tokens
 attend to (a) the long KV cache, the dense part, and (b) the W fresh tree
 KVs under the ancestor mask, the sparse part, merged by the paper's Eq.-1
-online softmax.  Here both parts run in one fused kernel
-(``kernels/dispatch.py::tree_attention``): the hand-written CUDA kernel on
-a CUDA tensor, its plain PyTorch version on a CPU tensor.  Prefill stays
-plain torch math, like the reference's jnp.
+online softmax.  Both parts run in one fused kernel
+(``kernels/dispatch.py::tree_attention`` over a dense cache,
+``::paged_tree_attention`` over the paged pool), or, for a paged cache
+with ``tree_kernel="sparse"``, in two kernels whose partials are merged
+here.  A CUDA tensor takes the hand-written CUDA kernels, a CPU tensor
+their plain PyTorch versions.  Prefill stays plain torch math, like the
+reference's jnp.
 """
 from __future__ import annotations
 
@@ -116,28 +119,43 @@ def _blocked_causal_attend(q, k, v, scale, *, window=0, block=1024):
 
 
 def attn_verify(cfg, p, x, *, ck, cv, key_pos, pos, tree_depth, tree_mask,
-                window=0, block_table=None, tree_kernel="dense"):
+                window=0, block_table=None, scale_k=None, scale_v=None,
+                tree_kernel="dense"):
     """Tree-verification attention over W draft tokens (decode = W=1 case).
 
     x: (B, W, d); tree_depth: (W,) node depth (0 = first new token);
     tree_mask: (W, W) ancestor-or-self mask; ``pos`` (B,) and ``key_pos``
-    (B, S) are per sequence.  The cache is the dense per-row layout ck/cv
-    (B, S, Hkv, hd).  Returns (out (B, W, d), (k_new, v_new)), the fresh
+    (B, S) are per sequence.
+
+    Cache layout: dense (``block_table=None``) reads ck/cv as per-row
+    caches (B, S, Hkv, hd); paged passes ONE layer's shared pool
+    ``(n_pages + 1, ps, Hkv, hd)`` with ``block_table (B, max_pages)``, and
+    an int8 pool its ``scale_k/scale_v (n_pages + 1, Hkv)``: the kernel
+    walks the table and dequantizes in its page walk.  ``tree_kernel=
+    "sparse"`` splits a paged verify into the cache-only page walk and the
+    W x W tree partial, merged by the Eq.-1 rule; a dense cache always takes
+    the fused kernel.  Returns (out (B, W, d), (k_new, v_new)), the fresh
     KVs NOT yet committed.
     """
-    if block_table is not None:
-        raise NotImplementedError("the paged KV pool is not yet ported "
-                                  "(ROADMAP A7, kernel B2)")
-    if tree_kernel != "dense":
-        raise NotImplementedError("the split sparse-tree verify is not yet "
-                                  "ported (ROADMAP B3-B4)")
     B, W, _ = x.shape
     pos_b = torch.broadcast_to(
         torch.as_tensor(pos, dtype=torch.int32, device=x.device), (B,))
     positions = pos_b[:, None] + tree_depth[None, :]          # (B, W)
     q, k_new, v_new = _qkv(cfg, p, x, positions)
-    o = dispatch.tree_attention(q, ck, cv, k_new, v_new, key_pos, pos_b,
-                                tree_depth, tree_mask, window=window)
+    if block_table is None:
+        o = dispatch.tree_attention(q, ck, cv, k_new, v_new, key_pos, pos_b,
+                                    tree_depth, tree_mask, window=window)
+    elif tree_kernel == "sparse":
+        cache_part = dispatch.paged_cache_attention(
+            q, ck, cv, block_table, key_pos, pos_b, tree_depth,
+            scale_k=scale_k, scale_v=scale_v)
+        tree_part = dispatch.sparse_tree_attention_partial(q, k_new, v_new,
+                                                           tree_mask)
+        o = cm.merge_partials([cache_part, tree_part]).to(x.dtype)
+    else:
+        o = dispatch.paged_tree_attention(
+            q, ck, cv, k_new, v_new, block_table, key_pos, pos_b, tree_depth,
+            tree_mask, scale_k=scale_k, scale_v=scale_v)
     out = o.reshape(B, W, -1) @ p["wo"]
     return out, (k_new, v_new)
 

@@ -8,7 +8,9 @@ Python loop over layers replaces ``lax.scan``.  Three paths:
   decode   token (B,1) + Cache      -> logits (B,1,V), updated Cache
   verify   tree tokens (B,W)+Cache  -> logits (B,W,V), uncommitted tree KVs
 
-``commit`` writes the accepted tree path's KVs into the cache.
+``commit`` writes the accepted tree path's KVs into the cache.  A paged
+cache (``runtime/cache.py::PagedKVCache``) is written and committed through
+its block table by ``bulk_write``/``kv_commit``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from repro_torch.models import common as cm
 from repro_torch.models.attention import attn_init, attn_prefill, attn_verify
 from repro_torch.models.mlp import mlp_apply, mlp_init
-from repro_torch.runtime.cache import Cache, bulk_write, init_kv_cache, kv_commit
+from repro_torch.runtime.cache import (Cache, PagedKVCache, bulk_write,
+                                      init_kv_cache, kv_commit)
 
 
 def init_params(cfg, gen):
@@ -92,18 +95,30 @@ def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask,
 
     Returns (logits (B,W,V), extras) with ``extras["tree_kv"]`` = (k, v),
     each (L,B,W,Hkv,hd), NOT committed: call ``commit`` with the accepted
-    path.
+    path.  A paged cache hands each layer its pool slice and, when the pool
+    is int8, its (P, Hkv) scale slices; ``tree_kernel`` picks the fused or
+    the split paged verify.
     """
     x = embed_tokens(cfg, params, tree_tokens)
     kv = cache.kv
+    paged = isinstance(kv, PagedKVCache)
     k_new, v_new = [], []
     for i in range(cfg.num_layers):
         lp = cm.layer_slice(params["layers"], i)
+        if paged:
+            layer_kv = dict(ck=kv.pool_k[i], cv=kv.pool_v[i],
+                            block_table=kv.block_table,
+                            scale_k=None if kv.scale_k is None
+                            else kv.scale_k[i],
+                            scale_v=None if kv.scale_v is None
+                            else kv.scale_v[i])
+        else:
+            layer_kv = dict(ck=kv.k[i], cv=kv.v[i])
         a, (k1, v1) = attn_verify(
             cfg, lp["attn"], cm.rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps),
-            ck=kv.k[i], cv=kv.v[i], key_pos=kv.key_pos, pos=kv.pos,
-            tree_depth=tree_depth, tree_mask=tree_mask, window=kv.window,
-            tree_kernel=tree_kernel)
+            key_pos=kv.key_pos, pos=kv.pos, tree_depth=tree_depth,
+            tree_mask=tree_mask, window=kv.window, tree_kernel=tree_kernel,
+            **layer_kv)
         x = x + a
         x = x + mlp_apply(cfg, lp["mlp"],
                           cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))

@@ -1,6 +1,7 @@
-"""Dense per-row KV cache (counterpart of the dense half of
+"""Dense per-row and paged KV caches (counterpart of
 ``repro/runtime/cache.py``).
 
+Dense (``KVCache``)
 - K/V are stacked over layers: ``(L, B, S, Hkv, hd)``.  Every sequence
   owns a full ``S = max_len`` row; with a sliding window the row is a ring
   buffer: slot(p) = p % S.
@@ -11,10 +12,23 @@
   write and mask below is per sequence.
 - RoPE is applied to keys at write time with their absolute position.
 
-The reference's jits donate the cache; here the K/V tensors are updated in
-place and ``key_pos``/``pos`` (a few bytes per row) are rebuilt, so a
-caller holding the previous ``key_pos``/``pos`` can still restore them.
-The paged pool (``PagedKVCache``) comes with a later slice (ROADMAP A7).
+Paged (``PagedKVCache``)
+- One shared pool of fixed-size pages ``(L, n_pages + 1, page_size, Hkv,
+  hd)``; page ``n_pages`` is a trash page: every masked, unreserved or
+  overflowing write lands there, so a row never writes a page another row
+  owns.  ``block_table (B, max_pages)`` maps logical page ``s // page_size``
+  to a pool page (-1 = unreserved), with the dense ring's slot arithmetic.
+- An int8 pool carries ``scale_k``/``scale_v (L, n_pages + 1, Hkv)``
+  float32 per-page dequant scales: 0.0 = unarmed; the first write into a
+  page arms it to amax/127 and the scale is then frozen (later writes
+  saturate at +-127).  Dequant is ``code * scale``.
+
+The reference's jits donate the cache; here the K/V tensors (and the paged
+pool) are updated in place, while ``key_pos``/``pos`` and the int8 scales
+(a few bytes per row or page) are rebuilt, so a caller holding the previous
+``key_pos``/``pos`` can still restore them.  The scheduler's row surgery
+(``insert_rows``, ``reset_rows``, ``slice_row``, ``write_row_at``) comes
+with ROADMAP A7b/A8.
 """
 from __future__ import annotations
 
@@ -38,10 +52,44 @@ class KVCache:
 
 
 @dataclasses.dataclass
+class PagedKVCache:
+    """Block-table KV cache: one shared page pool (trash page last) and
+    per-sequence tables.  ``window`` is always 0: sliding-window caches stay
+    dense (the ring IS the window)."""
+    pool_k: torch.Tensor        # (L, n_pages + 1, page_size, Hkv, hd)
+    pool_v: torch.Tensor        # (L, n_pages + 1, page_size, Hkv, hd)
+    block_table: torch.Tensor   # (B, max_pages) int32 pool page; -1 free
+    key_pos: torch.Tensor       # (B, max_pages * page_size) int32; -1 empty
+    pos: torch.Tensor           # (B,) int32 tokens processed so far
+    scale_k: Optional[torch.Tensor] = None   # (L, n_pages + 1, Hkv) f32
+    scale_v: Optional[torch.Tensor] = None   # (L, n_pages + 1, Hkv) f32
+    page_size: int = 16
+    window: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return self.pool_k.dtype == torch.int8
+
+    @property
+    def max_len(self) -> int:
+        """Logical row length (ring size): max_pages * page_size."""
+        return self.key_pos.shape[1]
+
+    @property
+    def n_pages(self) -> int:
+        """Reservable pages, the trash page excluded."""
+        return self.pool_k.shape[1] - 1
+
+    @property
+    def max_pages(self) -> int:
+        return self.block_table.shape[1]
+
+
+@dataclasses.dataclass
 class Cache:
     """Decode-state cache.  This slice ports the self-attention KV only;
     the recurrent and cross-attention states come with ROADMAP A11."""
-    kv: Optional[KVCache] = None
+    kv: Optional[KVCache | PagedKVCache] = None
 
     @property
     def pos(self) -> torch.Tensor:
@@ -65,6 +113,281 @@ def init_kv_cache(n_layers, batch, max_len, n_kv, head_dim, *, window=0,
     )
 
 
+def init_paged_kv_cache(n_layers, batch, max_len, n_kv, head_dim, *,
+                        page_size, n_pages, dtype=torch.bfloat16,
+                        device="cuda") -> PagedKVCache:
+    """Empty paged bank: zeroed pool (+1 trash page), all tables
+    unreserved.  ``max_len`` is the logical per-row capacity (rounded up to
+    whole pages).  ``dtype=torch.int8`` builds a quantized pool with zeroed
+    (unarmed) scales, one distinct tensor for K and one for V."""
+    max_pages = pages_for(max_len, page_size)
+    shape = (n_layers, n_pages + 1, page_size, n_kv, head_dim)
+
+    def scale():
+        return (torch.zeros((n_layers, n_pages + 1, n_kv),
+                            dtype=torch.float32, device=device)
+                if dtype == torch.int8 else None)
+
+    return PagedKVCache(
+        pool_k=torch.zeros(shape, dtype=dtype, device=device),
+        pool_v=torch.zeros(shape, dtype=dtype, device=device),
+        block_table=torch.full((batch, max_pages), -1, dtype=torch.int32,
+                               device=device),
+        key_pos=torch.full((batch, max_pages * page_size), -1,
+                           dtype=torch.int32, device=device),
+        pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+        scale_k=scale(), scale_v=scale(), page_size=page_size)
+
+
+def pages_for(n_tokens, page_size) -> int:
+    """Pages needed to hold ``n_tokens`` slots."""
+    return -(-int(n_tokens) // int(page_size))
+
+
+def page_bytes(n_layers, page_size, n_kv, head_dim, kv_dtype) -> int:
+    """Device bytes of one pool page across all layers, K+V, including the
+    per-page scales of an int8 pool."""
+    elt = torch.empty((), dtype=kv_dtype).element_size()
+    data = 2 * n_layers * page_size * n_kv * head_dim * elt
+    scale = 2 * n_layers * n_kv * 4 if kv_dtype == torch.int8 else 0
+    return data + scale
+
+
+def kv_bytes_per_token(n_layers, n_kv, head_dim, kv_dtype, page_size) -> float:
+    """Bytes per reservable token slot (K+V, all layers, amortized scale)."""
+    return page_bytes(n_layers, page_size, n_kv, head_dim, kv_dtype) \
+        / page_size
+
+
+def pages_at_fixed_bytes(budget_bytes, n_layers, page_size, n_kv, head_dim,
+                         kv_dtype) -> int:
+    """Reservable pages a byte budget funds at ``kv_dtype``."""
+    return int(budget_bytes) // page_bytes(n_layers, page_size, n_kv,
+                                           head_dim, kv_dtype)
+
+
+class PageAllocator:
+    """Host-side free list over the pool's reservable page ids, handed out
+    lowest-id-first so runs are deterministic.  Every page handed out is
+    held until freed: ``available + outstanding == n_pages`` always holds
+    (``conserved``), and freeing a page that is not held raises."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = int(n_pages)
+        self._free = list(range(self.n_pages))   # kept sorted
+        self._held = set()
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def outstanding(self) -> int:
+        return len(self._held)
+
+    @property
+    def conserved(self) -> bool:
+        return (len(self._free) + len(self._held) == self.n_pages
+                and not self._held.intersection(self._free))
+
+    def alloc(self, n: int) -> list:
+        """Take exactly ``n`` pages; raises if the pool cannot supply them."""
+        if n > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: want {n}, have {len(self._free)}")
+        pages, self._free = self._free[:n], self._free[n:]
+        self._held.update(pages)
+        return pages
+
+    def alloc_upto(self, n: int) -> list:
+        """Take ``min(n, available)`` pages (a partial reservation freezes
+        at ``capacity_left`` instead of failing)."""
+        return self.alloc(min(n, len(self._free)))
+
+    def free(self, pages) -> None:
+        for p in pages:
+            p = int(p)
+            if p < 0:
+                continue
+            if p not in self._held:
+                raise RuntimeError(f"bad page free: {p}")
+            self._held.discard(p)
+            self._free.append(p)
+        self._free.sort()
+
+
+def _arm_and_quantize(src_flat, scale, flat_page, P):
+    """Quantize one operand's writes under frozen-first-write page scales.
+
+    src_flat: (L, N, Hkv, hd) float sources; scale: (L, P, Hkv), 0.0 =
+    unarmed; flat_page: (N,) destination pool page per write (trash writes
+    included).  Pages unarmed before this call arm to amax(|writes into the
+    page|)/127 per (layer, head); armed pages keep their scale and later
+    writes saturate.  Returns (codes (L, N, Hkv, hd) int8, new scale)."""
+    src = src_flat.float()
+    amax = src.abs().amax(dim=-1)                             # (L, N, Hkv)
+    idx = flat_page.long()[None, :, None].expand_as(amax)
+    page_amax = torch.zeros(scale.shape, dtype=torch.float32,
+                            device=src.device).scatter_reduce_(
+        1, idx, amax, "amax", include_self=False).clamp(min=0.0)
+    new_scale = torch.where(scale > 0.0, scale, page_amax / 127.0)
+    s_w = new_scale[:, flat_page.long()][..., None]           # (L, N, Hkv, 1)
+    armed = s_w > 0.0
+    # torch.round rounds half to even, as jnp.round does
+    q = torch.where(armed, torch.clamp(torch.round(
+        src / torch.where(armed, s_w, 1.0)), -127.0, 127.0), 0.0)
+    return q.to(torch.int8), new_scale
+
+
+def _pool_scatter(pool_k, pool_v, tables, k_src, v_src, abs_pos, valid,
+                  scale_k=None, scale_v=None):
+    """Scatter per-sequence writes through block tables into the shared
+    pool, IN PLACE (the reference donates the pool).
+
+    pool_k/pool_v: (L, P, ps, Hkv, hd), P = n_pages + 1 (trash last);
+    tables: (B, max_pages); k_src/v_src: (L, B, W, Hkv, hd); abs_pos/valid:
+    (B, W); scale_k/scale_v: (L, P, Hkv) for an int8 pool, else None.
+
+    Masked writes and writes on an unreserved table entry go to the last
+    slot of the trash page, so a row never writes a page it does not own.
+    Several of them may share that slot; an indexed store keeps an
+    arbitrary one, which is harmless because the slot is never read.
+    Returns (scale_k, scale_v, ok (B, W)); ``ok`` marks the writes that
+    landed in real pages."""
+    L, P, ps, Hkv, hd = pool_k.shape
+    s_log = tables.shape[1] * ps
+    logical = abs_pos.remainder(s_log)                        # (B, W)
+    page = tables.gather(1, (logical // ps).long())
+    ok = valid & (page >= 0)
+    phys = torch.where(ok, page * ps + logical.remainder(ps), P * ps - 1)
+    flat = phys.reshape(-1).long()
+    k_flat = k_src.reshape(L, -1, Hkv, hd)
+    v_flat = v_src.reshape(L, -1, Hkv, hd)
+    if scale_k is not None:
+        k_flat, scale_k = _arm_and_quantize(k_flat, scale_k, flat // ps, P)
+        v_flat, scale_v = _arm_and_quantize(v_flat, scale_v, flat // ps, P)
+    pool_k.view(L, P * ps, Hkv, hd)[:, flat] = k_flat.to(pool_k.dtype)
+    pool_v.view(L, P * ps, Hkv, hd)[:, flat] = v_flat.to(pool_v.dtype)
+    return scale_k, scale_v, ok
+
+
+def _keypos_scatter(key_pos, abs_pos, ok):
+    """Mark ``abs_pos`` at its logical slot where ``ok``; rejected writes go
+    to a shed column past the row.  Returns a new (B, S_logical) tensor."""
+    B, s_log = key_pos.shape
+    col = torch.where(ok, abs_pos.remainder(s_log), s_log).long()
+    kp = torch.nn.functional.pad(key_pos, (0, 1), value=-1)
+    rows = torch.arange(B, device=key_pos.device)[:, None]
+    kp[rows, col] = torch.where(ok, abs_pos, -1).to(torch.int32)
+    return kp[:, :s_log].contiguous()
+
+
+def _per_batch(start, batch, device):
+    """A scalar or (B,) start position as a (B,) int32 tensor."""
+    return torch.broadcast_to(torch.as_tensor(start, dtype=torch.int32,
+                                              device=device), (batch,))
+
+
+def paged_kv_write(kv: PagedKVCache, ks, vs, start) -> PagedKVCache:
+    """Write S_new entries per sequence at [start_b, start_b + S_new)
+    through the block table.  ks/vs: (L, B, S_new, Hkv, hd).  A run longer
+    than one logical ring keeps only its tail, as the dense ring does."""
+    B, s_new = ks.shape[1], ks.shape[2]
+    start = _per_batch(start, B, kv.pos.device)
+    s_log = kv.max_len
+    if s_new >= s_log:
+        ks, vs = ks[:, :, -s_log:], vs[:, :, -s_log:]
+        start = start + (s_new - s_log)
+        s_new = s_log
+    abs_pos = start[:, None] + torch.arange(s_new, dtype=torch.int32,
+                                            device=start.device)[None, :]
+    valid = torch.ones(abs_pos.shape, dtype=torch.bool, device=start.device)
+    sk, sv, ok = _pool_scatter(kv.pool_k, kv.pool_v, kv.block_table, ks, vs,
+                               abs_pos, valid, kv.scale_k, kv.scale_v)
+    return dataclasses.replace(
+        kv, scale_k=sk, scale_v=sv,
+        key_pos=_keypos_scatter(kv.key_pos, abs_pos, ok),
+        pos=(start + s_new).to(torch.int32))
+
+
+def paged_kv_commit(kv: PagedKVCache, k_new, v_new, accept_nodes, n_accept,
+                    max_depth) -> PagedKVCache:
+    """Write each sequence's accepted tree path through its block table.
+    Writes past ``n_accept[b]``, and any write past a row's reservation,
+    land in the trash page."""
+    dev = kv.pos.device
+    idx = torch.arange(max_depth, dtype=torch.int32, device=dev)
+    rows = torch.arange(k_new.shape[1], device=dev)[:, None]
+    nodes = accept_nodes.long()
+    abs_pos = kv.pos[:, None] + idx[None, :]
+    valid = idx[None, :] < n_accept[:, None]
+    sk, sv, ok = _pool_scatter(kv.pool_k, kv.pool_v, kv.block_table,
+                               k_new[:, rows, nodes], v_new[:, rows, nodes],
+                               abs_pos, valid, kv.scale_k, kv.scale_v)
+    return dataclasses.replace(
+        kv, scale_k=sk, scale_v=sv,
+        key_pos=_keypos_scatter(kv.key_pos, abs_pos, ok),
+        pos=(kv.pos + n_accept).to(torch.int32))
+
+
+def gather_pages(pool_layer, block_table):
+    """One layer's logical (B, S_logical, Hkv, hd) view through the block
+    table.  Unreserved entries read the trash page; their slots carry
+    key_pos == -1, so every mask rejects them."""
+    P, ps = pool_layer.shape[0], pool_layer.shape[1]
+    t = torch.where(block_table < 0, P - 1, block_table).long()
+    B, maxp = block_table.shape
+    return pool_layer[t].reshape((B, maxp * ps) + tuple(pool_layer.shape[2:]))
+
+
+def gather_pages_dequant(pool_layer, scale_layer, block_table):
+    """``gather_pages`` of an int8 pool, dequantized to a float32 view with
+    one layer's per-page scales ``scale_layer (P, Hkv)``;
+    ``scale_layer=None`` is the verbatim gather of a float pool."""
+    if scale_layer is None:
+        return gather_pages(pool_layer, block_table)
+    P, ps = pool_layer.shape[0], pool_layer.shape[1]
+    t = torch.where(block_table < 0, P - 1, block_table).long()
+    ck = pool_layer[t].float() * scale_layer[t][:, :, None, :, None]
+    B, maxp = block_table.shape
+    return ck.reshape((B, maxp * ps) + tuple(pool_layer.shape[2:]))
+
+
+def paginate_cache(cache: Cache, tables, *, page_size, n_pages,
+                   kv_dtype=None) -> Cache:
+    """Convert a freshly prefilled DENSE cache (sized to the prompt) into
+    the paged layout.  ``tables (B, max_pages)`` come from the host-side
+    allocator.  Entries older than one logical ring are dropped.
+    ``kv_dtype`` picks the pool dtype (default: the dense cache's own);
+    ``torch.int8`` quantizes the prompt KV on the way in, arming each
+    destination page's scale from the prefill write."""
+    kv = cache.kv
+    if kv is None or isinstance(kv, PagedKVCache):
+        return cache
+    if kv.window:
+        raise ValueError("paged KV supports full attention only (window=0)")
+    L, B, S, Hkv, hd = kv.k.shape
+    dev = kv.k.device
+    pool_dtype = kv.k.dtype if kv_dtype is None else kv_dtype
+    s_log = tables.shape[1] * page_size
+    shape = (L, n_pages + 1, page_size, Hkv, hd)
+    pool_k = torch.zeros(shape, dtype=pool_dtype, device=dev)
+    pool_v = torch.zeros(shape, dtype=pool_dtype, device=dev)
+    scale = (torch.zeros((L, n_pages + 1, Hkv), dtype=torch.float32,
+                         device=dev) if pool_dtype == torch.int8 else None)
+    abs_pos = kv.key_pos                                      # (B, S)
+    valid = (abs_pos >= 0) & (abs_pos >= kv.pos[:, None] - s_log)
+    sk, sv, ok = _pool_scatter(pool_k, pool_v, tables, kv.k, kv.v, abs_pos,
+                               valid, scale, scale)
+    key_pos = _keypos_scatter(
+        torch.full((B, s_log), -1, dtype=torch.int32, device=dev),
+        abs_pos, ok)
+    return dataclasses.replace(cache, kv=PagedKVCache(
+        pool_k=pool_k, pool_v=pool_v, block_table=tables, key_pos=key_pos,
+        pos=kv.pos, scale_k=sk, scale_v=sv, page_size=page_size))
+
+
+# --------------------------------------------------------------------------
 def _ring_match(abs_pos, valid, size):
     """Per-slot source index for a masked ring write, batched over rows.
 
@@ -112,8 +435,11 @@ def bulk_write(kv: KVCache, ks, vs, start) -> KVCache:
 
     ``start`` is an int (prefill: uniform positions) or a (B,) tensor of
     per-sequence positions (decode after speculative steps).  The ring keeps
-    the tail when S exceeds the cache size.
+    the tail when S exceeds the cache size.  A paged cache writes through
+    its block table (``paged_kv_write``).
     """
+    if isinstance(kv, PagedKVCache):
+        return paged_kv_write(kv, ks, vs, start)
     B, S = ks.shape[1], ks.shape[2]
     size = kv.max_len
     off = 0
@@ -152,8 +478,12 @@ def kv_commit(kv: KVCache, k_new, v_new, accept_nodes, n_accept,
     accept_nodes: (B, Dmax) node ids of the accepted chain (padded);
     n_accept: (B,) accepted tokens per sequence (0..Dmax).
     Slots beyond n_accept[b] keep their previous contents, and ``pos``
-    advances by n_accept[b].
+    advances by n_accept[b].  A paged cache commits through its block
+    table (``paged_kv_commit``).
     """
+    if isinstance(kv, PagedKVCache):
+        return paged_kv_commit(kv, k_new, v_new, accept_nodes, n_accept,
+                               max_depth)
     dev = kv.key_pos.device
     idx = torch.arange(max_depth, dtype=torch.int32, device=dev)
     abs_pos = kv.pos[:, None] + idx[None, :]                  # (B, Dmax)
@@ -174,8 +504,12 @@ def capacity_left(cache: Cache) -> torch.Tensor:
     past capacity and silently overwrite its oldest entries.  Sliding-window
     caches wrap by design and report an effectively unbounded budget; the
     chunk driver folds this into its done mask so a row freezes instead of
-    corrupting its own attention."""
+    corrupting its own attention.  A paged row counts the slots of its
+    page reservation: reserved pages times page size, minus ``pos``."""
     kv = cache.kv
+    if isinstance(kv, PagedKVCache):
+        n_alloc = (kv.block_table >= 0).sum(dim=1).to(torch.int32)
+        return n_alloc * kv.page_size - kv.pos
     if kv.window:
         return torch.full(kv.pos.shape, _UNBOUNDED, dtype=torch.int32,
                           device=kv.pos.device)

@@ -22,10 +22,18 @@ emission masked and their ``key_pos``/``pos`` restored.  The host loop
 clamps the chunk length to the largest remaining budget (power-of-two
 schedule).
 
-The KV cache is updated in place where the reference donates it.  The paged
-pool, the HCMP overlap runner, int8 KV, the sparse verify split,
-``time_step`` and the ``sched_*`` slot protocol come with later slices
-(ROADMAP A6-A9); their constructor arguments raise ``NotImplementedError``.
+Paged KV (``paged=True``): the batch's KV lives in one shared page pool
+(runtime/cache.py).  ``generate`` reserves each row's pages on the host
+before prefill (``prompt + budget + overshoot`` slots, partial when the
+pool is short: the row then freezes at ``capacity_left``), prefills a
+dense cache sized to the prompt and paginates it, so the tables reach the
+device once.  ``kv_dtype`` picks the pool's dtype (``int8`` = quantized
+pages); ``tree_kernel`` picks the fused or the split paged verify.
+
+The KV cache is updated in place where the reference donates it.  The HCMP
+overlap runner, ``time_step`` and the ``sched_*`` slot protocol come with
+later slices (ROADMAP A6b, A8, A9); ``hcmp`` other than ``"inline"``
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,10 +47,34 @@ import torch
 from repro_torch.core.speculative.tree import Tree, TreeSpec, chain_spec
 from repro_torch.core.speculative.verify import (SpecState, spec_prefill,
                                                  spec_step)
-from repro_torch.runtime.cache import Cache, capacity_left
+from repro_torch.runtime.cache import (Cache, PageAllocator, capacity_left,
+                                      pages_for, paginate_cache)
 from repro_torch.runtime.sampling import greedy
 
 _NO_EOS = -1          # sentinel: no real token id is negative
+
+_KV_DTYPES = {"fp32": torch.float32, "f32": torch.float32,
+              "float32": torch.float32, "bf16": torch.bfloat16,
+              "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def _kv_dtype(kv_dtype):
+    """Normalize the engine's ``kv_dtype`` knob: None keeps the model
+    dtype; a name ("fp32" | "bf16" | "int8") or a torch dtype picks the
+    paged pool's storage dtype (int8 = quantized pages).  The serve CLI
+    maps its default ``--kv-dtype fp32`` to None, the model's dtype, as the
+    reference's does."""
+    if kv_dtype is None:
+        return None
+    if isinstance(kv_dtype, str):
+        if kv_dtype not in _KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {sorted(_KV_DTYPES)}"
+                             f" or a dtype, got {kv_dtype!r}")
+        return _KV_DTYPES[kv_dtype]
+    if not isinstance(kv_dtype, torch.dtype):
+        raise ValueError(f"kv_dtype must be a name or a torch dtype, got "
+                         f"{kv_dtype!r}")
+    return kv_dtype
 
 
 def _budget(n_tokens, batch) -> np.ndarray:
@@ -130,21 +162,11 @@ class DecodeEngine:
 
     def __init__(self, model, params, *, strategy: Optional[DecodeStrategy]
                  = None, heads=None, max_len=512, window=0, chunk=8,
-                 paged=False, hcmp="inline", kv_dtype=None,
-                 tree_kernel="dense"):
-        if paged:
-            raise NotImplementedError("paged=True: the paged KV pool is not "
-                                      "yet ported (ROADMAP A7)")
+                 paged=False, page_size=16, pool_pages=None, hcmp="inline",
+                 kv_dtype=None, tree_kernel="dense"):
         if hcmp != "inline":
             raise NotImplementedError(f"hcmp={hcmp!r}: the HCMP executor "
                                       "split is not yet ported (ROADMAP A9)")
-        if kv_dtype is not None:
-            raise NotImplementedError("kv_dtype: quantized KV pages are not "
-                                      "yet ported (ROADMAP A7)")
-        if tree_kernel != "dense":
-            raise NotImplementedError(f"tree_kernel={tree_kernel!r}: the "
-                                      "split verify is not yet ported "
-                                      "(ROADMAP B3-B4)")
         self.device = params["embed"].device
         if strategy is None:
             if heads is not None:
@@ -156,11 +178,77 @@ class DecodeEngine:
                 f"strategy draft {strategy.draft!r} "
                 f"{'requires' if strategy.draft == 'medusa' else 'forbids'} "
                 "draft heads")
+        kv_dtype = _kv_dtype(kv_dtype)
+        if kv_dtype == torch.int8 and not paged:
+            raise ValueError("kv_dtype=int8 quantizes the PAGED pool "
+                             "(per-page scales live on the page axis); "
+                             "dense ring caches stay float: pass paged=True")
+        self.kv_dtype = kv_dtype
         self.model, self.params, self.heads = model, params, heads
         self.strategy = strategy
         self.max_len, self.window = max_len, window
         self.chunk = chunk
-        self.tree_kernel = tree_kernel
+        self._paged_init(paged=paged, page_size=page_size,
+                         pool_pages=pool_pages)
+        self.set_tree_kernel(tree_kernel)
+
+    # ---- paged pool (host-side reservations) -----------------------------
+    def _paged_init(self, *, paged, page_size, pool_pages):
+        if paged and self.window:
+            raise ValueError("paged KV supports full attention only "
+                             "(sliding windows stay dense: the ring IS the "
+                             "window)")
+        self.paged, self.page_size = paged, page_size
+        self.pool_pages = pool_pages
+        self.max_pages = pages_for(self.max_len, page_size) if paged else 0
+
+    @property
+    def _overshoot(self) -> int:
+        # worst case slots written past the budget: one full accepted chain
+        # (1 for sequential)
+        return self.strategy.tree.max_depth
+
+    def _need_pages(self, prompt_len: int, budget: int, n_total: int) -> int:
+        return min(pages_for(prompt_len + budget + self._overshoot,
+                             self.page_size),
+                   self.max_pages, n_total)
+
+    def _reserve_tables(self, batch_size, prompt_len, budget):
+        """Per-row page reservations for a ``generate`` call, lowest page
+        ids first.  When the pool cannot cover a row's need the reservation
+        is PARTIAL: the row freezes at ``capacity_left`` with its shortfall
+        in ``n_emitted``; it never borrows a neighbour's pages."""
+        n_total = self.pool_pages or batch_size * self.max_pages
+        alloc = PageAllocator(n_total)
+        tables = np.full((batch_size, self.max_pages), -1, np.int32)
+        for b in range(batch_size):
+            pages = alloc.alloc_upto(
+                self._need_pages(prompt_len, int(budget[b]), n_total))
+            tables[b, :len(pages)] = pages
+        return torch.as_tensor(tables, device=self.device), n_total
+
+    def _prefill_paged(self, tokens, tables, n_total):
+        """Prefill into a transient dense cache sized to the prompt, then
+        paginate it into a fresh pool of ``n_total`` pages."""
+        st = _prefill_state(self.model, self.params, self.heads,
+                            {"tokens": tokens}, max_len=1, window=0)
+        cache = paginate_cache(st.cache, tables, page_size=self.page_size,
+                               n_pages=n_total, kv_dtype=self.kv_dtype)
+        return SpecState(cache=cache, cur_token=st.cur_token,
+                         hidden=st.hidden)
+
+    def set_tree_kernel(self, mode: str) -> None:
+        """Switch the paged verify kernel between chunks: "dense" = fused
+        page walk + tree tile, "sparse" = page walk and tree partial merged
+        by the Eq.-1 rule."""
+        if mode not in ("dense", "sparse"):
+            raise ValueError(f"tree_kernel must be 'dense' or 'sparse', "
+                             f"got {mode!r}")
+        if mode == "sparse" and not self.paged:
+            raise ValueError("tree_kernel='sparse' splits the PAGED verify "
+                             "path (page walk + tree partial); dense caches "
+                             "use the fused kernel: pass paged=True")
+        self.tree_kernel = mode
 
     # ---- strategy axis ---------------------------------------------------
     def strategy_for(self, spec: TreeSpec) -> DecodeStrategy:
@@ -236,9 +324,14 @@ class DecodeEngine:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B = int(tokens.shape[0])
         budget = _budget(n_tokens, B)
-        state = _prefill_state(self.model, self.params, self.heads,
-                               {"tokens": tokens}, max_len=self.max_len,
-                               window=self.window)
+        if self.paged:
+            tables, n_total = self._reserve_tables(B, int(tokens.shape[1]),
+                                                   budget)
+            state = self._prefill_paged(tokens, tables, n_total)
+        else:
+            state = _prefill_state(self.model, self.params, self.heads,
+                                   {"tokens": tokens}, max_len=self.max_len,
+                                   window=self.window)
         n_max = int(budget.max())
         # prologue sync: the prefill's first token
         first = state.cur_token.tolist()
@@ -301,12 +394,13 @@ class BatchEngine(DecodeEngine):
     strategy (no draft)."""
 
     def __init__(self, model, params, *, max_len=512, window=0, chunk=8,
-                 paged=False, kv_dtype=None):
+                 paged=False, page_size=16, pool_pages=None, kv_dtype=None):
         super().__init__(model, params,
                          strategy=DecodeStrategy.sequential(
                              params["embed"].device),
                          max_len=max_len, window=window, chunk=chunk,
-                         paged=paged, kv_dtype=kv_dtype)
+                         paged=paged, page_size=page_size,
+                         pool_pages=pool_pages, kv_dtype=kv_dtype)
 
 
 class SpeculativeEngine(DecodeEngine):
@@ -314,13 +408,15 @@ class SpeculativeEngine(DecodeEngine):
     strategy built from ``tree_spec``."""
 
     def __init__(self, model, heads, params, tree_spec: TreeSpec, *,
-                 max_len=512, window=0, chunk=8, paged=False, hcmp="inline",
-                 kv_dtype=None, tree_kernel="dense"):
+                 max_len=512, window=0, chunk=8, paged=False, page_size=16,
+                 pool_pages=None, hcmp="inline", kv_dtype=None,
+                 tree_kernel="dense"):
         super().__init__(model, params, heads=heads,
                          strategy=DecodeStrategy.medusa(
                              tree_spec, params["embed"].device),
                          max_len=max_len, window=window, chunk=chunk,
-                         paged=paged, hcmp=hcmp, kv_dtype=kv_dtype,
+                         paged=paged, page_size=page_size,
+                         pool_pages=pool_pages, hcmp=hcmp, kv_dtype=kv_dtype,
                          tree_kernel=tree_kernel)
 
 

@@ -14,6 +14,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import tree_partial as tp  # noqa: E402
 from repro_torch.kernels.verify_attention import verify_attention  # noqa: E402
 
 
@@ -45,3 +47,44 @@ def test_cuda_call_launches_or_raises():
     with pytest.raises(TypeError):
         verify_attention(*bad)
     assert verify_attention.launches == n
+
+
+@pytest.mark.gpu
+def test_paged_kernels_match_plain_on_card():
+    """The fused page walk, the cache-only walk and the tree partial over
+    the paged sweep (window-0 CASES as page tables, PAGED_INT8_CASES) and
+    the main path's shapes, each call one launch of each kernel."""
+    _need_gpu()
+    before = (pa.paged_tree_attention.launches,
+              pa.paged_cache_attention.launches,
+              tp.sparse_tree_attention_partial.launches)
+    worst = chip_smoke.phase_paged_kernel_check(torch, np)
+    n = len(chip_smoke.paged_case_list(np))
+    assert (pa.paged_tree_attention.launches,
+            pa.paged_cache_attention.launches,
+            tp.sparse_tree_attention_partial.launches) == tuple(
+                b + n for b in before)
+    assert max(worst.values()) < 2e-2
+
+
+@pytest.mark.gpu
+def test_paged_cuda_calls_launch_or_raise():
+    """No fallback on the card: an int8 pool without scales, or an operand
+    of the wrong dtype, raises before any launch."""
+    _need_gpu()
+    label, kw = chip_smoke.paged_case_list(np)[-1]
+    a = chip_smoke.paged_inputs(torch, np, **kw)
+    n = (pa.paged_tree_attention.launches, pa.paged_cache_attention.launches,
+         tp.sparse_tree_attention_partial.launches)
+    with pytest.raises(ValueError):
+        pa.paged_tree_attention(*chip_smoke.paged_args(dict(a, scale_k=None,
+                                                            scale_v=None)))
+    with pytest.raises(TypeError):
+        pa.paged_cache_attention(*chip_smoke.paged_args(
+            dict(a, q=a["q"].double()), tree=False))
+    with pytest.raises(TypeError):
+        tp.sparse_tree_attention_partial(a["q"], a["k_new"].float(),
+                                         a["v_new"], a["tree_mask"])
+    assert (pa.paged_tree_attention.launches,
+            pa.paged_cache_attention.launches,
+            tp.sparse_tree_attention_partial.launches) == n

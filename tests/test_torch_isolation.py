@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from repro.analysis.core import Project, collect_files
 
 SRC = Path(__file__).resolve().parent.parent / "src"
@@ -42,6 +44,37 @@ def test_port_imports_with_jax_blocked():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) == len(_modules()) >= 25
+
+
+SLICE_MODULES = ["repro_torch.runtime.cache",
+                 "repro_torch.kernels.paged_attention",
+                 "repro_torch.kernels.tree_partial",
+                 "repro_torch.kernels.launch",
+                 "repro_torch.kernels.dispatch",
+                 "repro_torch.runtime.engine"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_paged_slice_module_imports_alone_with_jax_blocked(module):
+    """Each module of the paged slice imports on its own in a fresh
+    process where jax, the reference and triton cannot be imported, and
+    builds nothing at import (no ``kernels/_build`` library is loaded)."""
+    assert module in _modules()
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "sys.modules['triton'] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "from repro_torch.kernels import build\n"
+        "assert not build._loaded, build._loaded\n"
+        "bad = sorted(k for k, v in sys.modules.items() if v is not None\n"
+        "             and k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_no_port_module_imports_jax_triton_or_reference():

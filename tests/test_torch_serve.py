@@ -52,16 +52,61 @@ def test_serve_without_gpu_fails_instead_of_running_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paged"], ["--kv-dtype", "int8"], ["--tree-kernel", "sparse"],
+    ["--paged", "--tree-kernel", "auto"], ["--hcmp", "auto"],
     ["--hcmp", "overlap"], ["--arrivals", "poisson"], ["--spec-width", "4"],
     ["--ckpt", "x"], ["--heads-ckpt", "x"], ["--width", "0"],
+    ["--spec-width", "auto"],
 ])
-def test_later_slice_flags_exit_not_yet_ported(flags):
+def test_later_slice_flags_exit_not_yet_ported(flags, capsys):
     from repro_torch.launch import serve
     argv = SMOKE + ["--device", "cpu", "--width", "8"] + flags
     with pytest.raises(SystemExit) as e:
         serve.parse_args(argv)
     assert e.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--kv-dtype", "int8"], "add --paged"),
+    (["--tree-kernel", "sparse"], "add --paged"),
+    (["--paged", "--tree-kernel", "sparse", "--mode", "sequential"],
+     "ghidorah option"),
+    (["--paged", "--page-size", "0"], "--page-size must be >= 1"),
+    (["--paged", "--pool-pages", "-1"], "--pool-pages must be >= 0"),
+])
+def test_paged_flag_errors_match_the_reference(flags, why, capsys):
+    from repro_torch.launch import serve
+    argv = SMOKE + ["--device", "cpu", "--width", "8"] + flags
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(argv)
+    assert e.value.code != 0
+    assert why in capsys.readouterr().err
+
+
+_DENSE = {}
+
+
+@pytest.mark.parametrize("mode,flags", [
+    ("ghidorah", ["--paged"]),
+    ("ghidorah", ["--paged", "--kv-dtype", "int8"]),
+    ("ghidorah", ["--paged", "--kv-dtype", "int8", "--tree-kernel",
+                  "sparse"]),
+    ("ghidorah", ["--paged", "--kv-dtype", "bf16", "--page-size", "4"]),
+    ("sequential", ["--paged", "--kv-dtype", "int8", "--pool-pages", "6"]),
+])
+def test_paged_serve_on_cpu_emits_the_full_budget(mode, flags):
+    """The paged serve on the CPU (plain PyTorch attention) emits every
+    row's budget; a float pool in the model's dtype emits the dense
+    serve's tokens."""
+    from repro_torch.launch import serve
+    argv = SMOKE + ["--device", "cpu", "--width", "8", "--mode", mode]
+    if mode not in _DENSE:
+        _DENSE[mode] = serve.run(serve.parse_args(argv))
+    res = serve.run(serve.parse_args(argv + flags))
+    assert res["stats"]["emitted_total"] == 2 * 12
+    assert (res["stats"]["n_emitted"] == 12).all()
+    if flags == ["--paged"]:
+        assert (res["out"] == _DENSE[mode]["out"]).all()
 
 
 def test_chip_smoke_fails_without_gpu_and_outside_a_checkout(tmp_path):
