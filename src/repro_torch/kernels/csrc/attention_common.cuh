@@ -1,13 +1,17 @@
 // Device pieces shared by the dense verify (verify_attention.cu), the paged
-// page walk (paged_attention.cu) and the sparse tree partial
+// page walk (paged_attention.cu) and the sparse tree kernels
 // (tree_partial.cu): vector loads that widen to fp32, warp reductions, the
 // shared-memory layout of one block, the masked online-softmax update of
 // one key tile, the tree tiles and the two epilogues.
 //
-// A block owns one (batch row b, kv head h).  Its G*W query rows (query
-// head h*G + g, row r = g*W + w: the reference's GQA grouping) sit in
-// shared memory in fp32 beside their o, m, l accumulators.  A caller stages
-// a tile of keys (K with rows padded to hd + 1 floats, so the q.k reads of
+// A block owns one (batch row b, kv head h) and one tile of its G*W query
+// rows (query head h*G + g, row r = g*W + w: the reference's GQA grouping).
+// The grid is (B*Hkv, ceil(G*W / R)): blockIdx.y picks rows
+// [y*R, min((y+1)*R, G*W)), so a long piece (a W=256 chunked-prefill chain)
+// or a wide GQA group fits a block's shared memory; each row's softmax is
+// independent, so the result does not depend on R.  The rows sit in shared
+// memory in fp32 beside their o, m, l accumulators.  A caller stages a tile
+// of keys (K with rows padded to hd + 1 floats, so the q.k reads of
 // neighbouring threads hit distinct banks; V unpadded) and the (row, key)
 // validity flags, then calls attend_tile.  Scores outside the mask are the
 // finite kNegInf and their probabilities exactly 0 (a valid flag, never a
@@ -71,16 +75,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared memory of one block.
+// Shared memory of one block; R = the rows a block holds.
 struct Smem {
-  float* q;       // (GW, hd) query rows
-  float* o;       // (GW, hd) output accumulator
+  float* q;       // (R, hd) query rows
+  float* o;       // (R, hd) output accumulator
   float* k;       // (tile, hd + 1) K tile, fp32 (dequantized)
   float* v;       // (tile, hd) V tile
-  float* p;       // (GW, tile) scores, then probabilities
-  float* m;       // (GW) running max
-  float* l;       // (GW) running sum
-  float* corr;    // (GW) rescale of this tile
+  float* p;       // (R, tile) scores, then probabilities
+  float* m;       // (R) running max
+  float* l;       // (R) running sum
+  float* corr;    // (R) rescale of this tile
   float* kscale;  // (tile) per-slot K dequant scale
   float* vscale;  // (tile) per-slot V dequant scale
   int* kp;        // (tile) key position per slot, -1 = not read
@@ -88,30 +92,38 @@ struct Smem {
   int* qpos;      // (W)
   int* lo;        // (W)
   uint8_t* mask;  // (W, W) tree mask
-  uint8_t* ok;    // (GW, tile) validity of (row, key)
+  uint8_t* ok;    // (R, tile) validity of (row, key)
+  int r0;         // first query row of this block's tile
+  int nr;         // query rows of this block (<= R; fewer in the last tile)
 };
 
-__host__ __device__ inline size_t smem_bytes(int GW, int W, int hd,
+// Bytes of shared memory a block of R query rows needs.
+__host__ __device__ inline size_t smem_bytes(int R, int W, int hd,
                                              int tile) {
-  const size_t floats = 2 * (size_t)GW * hd + (size_t)tile * (hd + 1) +
-                        (size_t)tile * hd + (size_t)GW * tile +
-                        3 * (size_t)GW + 2 * (size_t)tile;
+  const size_t floats = 2 * (size_t)R * hd + (size_t)tile * (hd + 1) +
+                        (size_t)tile * hd + (size_t)R * tile +
+                        3 * (size_t)R + 2 * (size_t)tile;
   const size_t ints = 2 * (size_t)tile + 2 * (size_t)W;
-  const size_t bytes = (size_t)W * W + (size_t)GW * tile;
+  const size_t bytes = (size_t)W * W + (size_t)R * tile;
   return floats * 4 + ints * 4 + bytes;
 }
 
-__device__ inline Smem carve(float* base, int GW, int W, int hd, int tile) {
+// Lay out one block's shared memory for R rows, and place the block on its
+// row tile: rows [blockIdx.y * R, min(blockIdx.y * R + R, GW)).
+__device__ inline Smem carve(float* base, int GW, int R, int W, int hd,
+                             int tile) {
   Smem s;
+  s.r0 = blockIdx.y * R;
+  s.nr = min(R, GW - s.r0);
   s.q = base;
-  s.o = s.q + GW * hd;
-  s.k = s.o + GW * hd;
+  s.o = s.q + R * hd;
+  s.k = s.o + R * hd;
   s.v = s.k + tile * (hd + 1);
   s.p = s.v + tile * hd;
-  s.m = s.p + GW * tile;
-  s.l = s.m + GW;
-  s.corr = s.l + GW;
-  s.kscale = s.corr + GW;
+  s.m = s.p + R * tile;
+  s.l = s.m + R;
+  s.corr = s.l + R;
+  s.kscale = s.corr + R;
   s.vscale = s.kscale + tile;
   s.kp = reinterpret_cast<int*>(s.vscale + tile);
   s.phys = s.kp + tile;
@@ -122,20 +134,21 @@ __device__ inline Smem carve(float* base, int GW, int W, int hd, int tile) {
   return s;
 }
 
-// Query rows r = g*W + w <- q[b, w, h*G + g, :]; o = 0, m = kNegInf, l = 0.
+// The block's query rows, local row i = global row r = r0 + i = g*W + w
+// <- q[b, w, h*G + g, :]; o = 0, m = kNegInf, l = 0.
 template <typename TQ>
 __device__ void load_queries(const Smem& s, const TQ* q, int b, int h, int W,
                              int Hq, int G, int hd) {
   constexpr int VN = Vec<TQ>::N;
-  const int GW = G * W, nvec = hd / VN;
-  for (int i = threadIdx.x; i < GW * nvec; i += kThreads) {
-    const int r = i / nvec, c = (i % nvec) * VN;
-    const int g = r / W, w = r % W;
+  const int nvec = hd / VN;
+  for (int i = threadIdx.x; i < s.nr * nvec; i += kThreads) {
+    const int lr = i / nvec, c = (i % nvec) * VN;
+    const int r = s.r0 + lr, g = r / W, w = r % W;
     load_vec(q + ((size_t)(b * W + w) * Hq + h * G + g) * hd + c,
-             s.q + r * hd + c);
+             s.q + lr * hd + c);
   }
-  for (int i = threadIdx.x; i < GW * hd; i += kThreads) s.o[i] = 0.f;
-  for (int r = threadIdx.x; r < GW; r += kThreads) {
+  for (int i = threadIdx.x; i < s.nr * hd; i += kThreads) s.o[i] = 0.f;
+  for (int r = threadIdx.x; r < s.nr; r += kThreads) {
     s.m[r] = kNegInf;
     s.l[r] = 0.f;
   }
@@ -144,11 +157,12 @@ __device__ void load_queries(const Smem& s, const TQ* q, int b, int h, int W,
 // One staged tile: masked scores, the online-softmax update (one warp per
 // query row), then o = o * corr + p @ V.  Ends with a barrier, so the
 // caller may stage the next tile right away.
-__device__ inline void attend_tile(const Smem& s, int GW, int tile, int hd,
+__device__ inline void attend_tile(const Smem& s, int tile, int hd,
                                    float scale) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nr = s.nr;
   const int kstride = hd + 1;
-  for (int i = tid; i < GW * tile; i += kThreads) {
+  for (int i = tid; i < nr * tile; i += kThreads) {
     const int r = i / tile, t = i % tile;
     float sc = kNegInf;
     if (s.ok[i]) {
@@ -162,7 +176,7 @@ __device__ inline void attend_tile(const Smem& s, int GW, int tile, int hd,
   }
   __syncthreads();
 
-  for (int r = warp; r < GW; r += kWarps) {
+  for (int r = warp; r < nr; r += kWarps) {
     float* pr = s.p + r * tile;
     const uint8_t* okr = s.ok + r * tile;
     float mx = kNegInf;
@@ -186,7 +200,7 @@ __device__ inline void attend_tile(const Smem& s, int GW, int tile, int hd,
   }
   __syncthreads();
 
-  for (int i = tid; i < GW * hd; i += kThreads) {
+  for (int i = tid; i < nr * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
     const float* pr = s.p + r * tile;
     float acc = s.o[i] * s.corr[r];
@@ -202,7 +216,7 @@ __device__ inline void attend_tile(const Smem& s, int GW, int tile, int hd,
 // and invalid.
 template <typename TQ>
 __device__ void attend_tree(const Smem& s, const TQ* kn, const TQ* vn, int b,
-                            int h, int W, int Hkv, int GW, int hd, int tile,
+                            int h, int W, int Hkv, int hd, int tile,
                             float scale) {
   tile = min(tile, (W + 7) / 8 * 8);
   constexpr int VN = Vec<TQ>::N;
@@ -225,12 +239,12 @@ __device__ void attend_tree(const Smem& s, const TQ* kn, const TQ* vn, int b,
         s.v[t * hd + c + e] = vf[e];
       }
     }
-    for (int i = threadIdx.x; i < GW * tile; i += kThreads) {
-      const int r = i / tile, t = i % tile, w = r % W, j = j0 + t;
+    for (int i = threadIdx.x; i < s.nr * tile; i += kThreads) {
+      const int t = i % tile, w = (s.r0 + i / tile) % W, j = j0 + t;
       s.ok[i] = j < W && s.mask[w * W + j];
     }
     __syncthreads();
-    attend_tile(s, GW, tile, hd, scale);
+    attend_tile(s, tile, hd, scale);
   }
 }
 
@@ -238,10 +252,10 @@ __device__ void attend_tree(const Smem& s, const TQ* kn, const TQ* vn, int b,
 template <typename TQ>
 __device__ void store_normalized(const Smem& s, TQ* out, int b, int h, int W,
                                  int Hq, int G, int hd) {
-  for (int i = threadIdx.x; i < G * W * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    const int g = r / W, w = r % W;
-    const float inv = 1.0f / fmaxf(s.l[r], 1e-30f);
+  for (int i = threadIdx.x; i < s.nr * hd; i += kThreads) {
+    const int lr = i / hd, d = i % hd;
+    const int r = s.r0 + lr, g = r / W, w = r % W;
+    const float inv = 1.0f / fmaxf(s.l[lr], 1e-30f);
     out[((size_t)(b * W + w) * Hq + h * G + g) * hd + d] =
         from_f32<TQ>(s.o[i] * inv);
   }
@@ -253,16 +267,16 @@ __device__ void store_normalized(const Smem& s, TQ* out, int b, int h, int W,
 __device__ inline void store_partials(const Smem& s, float* o, float* m,
                                       float* l, int b, int h, int W, int Hq,
                                       int G, int hd) {
-  for (int i = threadIdx.x; i < G * W * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
+  for (int i = threadIdx.x; i < s.nr * hd; i += kThreads) {
+    const int r = s.r0 + i / hd, d = i % hd;
     const int g = r / W, w = r % W;
     o[((size_t)(b * W + w) * Hq + h * G + g) * hd + d] = s.o[i];
   }
-  for (int r = threadIdx.x; r < G * W; r += kThreads) {
-    const int g = r / W, w = r % W;
+  for (int lr = threadIdx.x; lr < s.nr; lr += kThreads) {
+    const int r = s.r0 + lr, g = r / W, w = r % W;
     const size_t idx = ((size_t)b * Hq + h * G + g) * W + w;
-    m[idx] = fmaxf(s.m[r], kNegInf * 0.5f);
-    l[idx] = s.l[r];
+    m[idx] = fmaxf(s.m[lr], kNegInf * 0.5f);
+    l[idx] = s.l[lr];
   }
 }
 

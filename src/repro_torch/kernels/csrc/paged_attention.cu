@@ -11,12 +11,12 @@
 //
 // The page walk.  The TPU kernel gets the block table by scalar prefetch
 // and lets a BlockSpec index map DMA page table[b, i] at grid step i.
-// Here there is no prefetch: one thread block per (row b, kv head h) reads
-// its own table.  It walks the logical slots j = 0 .. maxp*ps - 1 in
-// tiles of `tile` keys; slot j lives at pool slot table[b, j/ps]*ps + j%ps
-// of the (P, ps, Hkv, hd) pool, so consecutive slots of one head are
-// Hkv*hd elements apart and a tile of 64 keys spans several pages when ps
-// is 4, 8 or 16.  Before each tile the block stages, per slot, its key
+// Here there is no prefetch: one thread block per (row b, kv head h, tile
+// of query rows) reads its own table.  It walks the logical slots
+// j = 0 .. maxp*ps - 1 in tiles of `tile` keys; slot j lives at pool slot
+// table[b, j/ps]*ps + j%ps of the (P, ps, Hkv, hd) pool, so consecutive
+// slots of one head are Hkv*hd elements apart and a tile of 64 keys spans
+// several pages when ps is 4, 8 or 16.  Before each tile the block stages, per slot, its key
 // position, its pool slot and its page's (K, V) scales; then it loads K/V
 // with 16-byte vectors (16 int8, 8 bf16 or 4 fp32 values), dequantizes in
 // registers (fp32 code * scale[page, h]: the scale may change inside a
@@ -35,7 +35,8 @@
 // the pool's element size (int8 halves bf16's bytes), plus q, the tree KVs
 // and the output; the G*W*(S+W)*hd*4 flops are far below the tensor-core
 // ridge.  Like verify_attention.cu, the design reads every pool byte once
-// (the G*W rows of a kv head share each tile) and keeps the rest on chip,
+// per row tile (the rows of a tile share each key tile; at the main path
+// all G*W rows are one tile) and keeps the rest on chip,
 // but it does not split over S: with B*Hkv blocks (128 at the main path)
 // and synchronous loads it is latency-bound well above the byte bound.  A
 // split-KV grid merged by Eq. 1, cp.async/TMA double buffering and wgmma
@@ -64,7 +65,7 @@ struct Args {
   float* o;             // (B, W, Hq, hd) unnormalized (cache-only)
   float* m;             // (B, Hq, W) (cache-only)
   float* l;             // (B, Hq, W) (cache-only)
-  int B, W, Hq, Hkv, hd, ps, maxp, tile;
+  int B, W, Hq, Hkv, hd, ps, maxp, tile, rows;
   float scale;
 };
 
@@ -79,7 +80,7 @@ __global__ void __launch_bounds__(kThreads)
   const int GW = G * W;
   const int S = a.maxp * ps;
   const int tid = threadIdx.x;
-  const Smem s = carve(smem, GW, W, hd, TS);
+  const Smem s = carve(smem, GW, a.rows, W, hd, TS);
 
   load_queries(s, a.q, b, h, W, a.Hq, G, hd);
   for (int w = tid; w < W; w += kThreads) {
@@ -144,17 +145,17 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     // ---- validity: filled, causal, inside the window
-    for (int i = tid; i < GW * TS; i += kThreads) {
-      const int r = i / TS, t = i % TS, w = r % W;
+    for (int i = tid; i < s.nr * TS; i += kThreads) {
+      const int t = i % TS, w = (s.r0 + i / TS) % W;
       const int kp = s.kp[t];
       s.ok[i] = kp >= 0 && kp <= s.qpos[w] && kp > s.lo[w];
     }
     __syncthreads();
-    attend_tile(s, GW, TS, hd, a.scale);
+    attend_tile(s, TS, hd, a.scale);
   }
 
   if constexpr (TREE) {
-    attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, GW, hd, TS, a.scale);
+    attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, hd, TS, a.scale);
     store_normalized(s, a.out, b, h, W, a.Hq, G, hd);
   } else {
     store_partials(s, a.o, a.m, a.l, b, h, W, a.Hq, G, hd);
@@ -169,7 +170,7 @@ struct Ptrs {
 
 template <typename TQ, typename TP, bool TREE>
 int run(const Ptrs& p, int B, int W, int Hq, int Hkv, int hd, int ps,
-        int maxp, int tile, float scale, cudaStream_t stream) {
+        int maxp, int tile, int rows, float scale, cudaStream_t stream) {
   Args<TQ, TP> a;
   a.q = static_cast<const TQ*>(p.q);
   a.pk = static_cast<const TP*>(p.pk);
@@ -195,46 +196,48 @@ int run(const Ptrs& p, int B, int W, int Hq, int Hkv, int hd, int ps,
   a.ps = ps;
   a.maxp = maxp;
   a.tile = tile;
+  a.rows = rows;
   a.scale = scale;
-  const size_t smem = smem_bytes(Hq / Hkv * W, W, hd, tile);
+  const size_t smem = smem_bytes(rows, W, hd, tile);
   cudaError_t err = cudaFuncSetAttribute(
       paged_attention_kernel<TQ, TP, TREE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_attention_kernel<TQ, TP, TREE><<<B * Hkv, kThreads, smem, stream>>>(a);
+  const dim3 grid(B * Hkv, (Hq / Hkv * W + rows - 1) / rows);
+  paged_attention_kernel<TQ, TP, TREE><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // dtype codes: 0 = fp32, 1 = bf16, 2 = int8 (pool only)
 template <typename TQ, bool TREE>
 int by_pool(int pool_dtype, const Ptrs& p, int B, int W, int Hq, int Hkv,
-            int hd, int ps, int maxp, int tile, float scale,
+            int hd, int ps, int maxp, int tile, int rows, float scale,
             cudaStream_t st) {
   switch (pool_dtype) {
     case 0:
-      return run<TQ, float, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp, tile, scale,
-                                  st);
+      return run<TQ, float, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp, tile, rows,
+                                  scale, st);
     case 1:
       return run<TQ, __nv_bfloat16, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp,
-                                          tile, scale, st);
+                                          tile, rows, scale, st);
     case 2:
       return run<TQ, int8_t, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp, tile,
-                                   scale, st);
+                                   rows, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool TREE>
 int by_q(int q_dtype, int pool_dtype, const Ptrs& p, int B, int W, int Hq,
-         int Hkv, int hd, int ps, int maxp, int tile, float scale,
+         int Hkv, int hd, int ps, int maxp, int tile, int rows, float scale,
          cudaStream_t st) {
   switch (q_dtype) {
     case 0:
       return by_pool<float, TREE>(pool_dtype, p, B, W, Hq, Hkv, hd, ps, maxp,
-                                  tile, scale, st);
+                                  tile, rows, scale, st);
     case 1:
       return by_pool<__nv_bfloat16, TREE>(pool_dtype, p, B, W, Hq, Hkv, hd,
-                                          ps, maxp, tile, scale, st);
+                                          ps, maxp, tile, rows, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -243,8 +246,8 @@ int by_q(int q_dtype, int pool_dtype, const Ptrs& p, int B, int W, int Hq,
 
 extern "C" {
 
-size_t paged_attention_smem_bytes(int GW, int W, int hd, int tile) {
-  return attn::smem_bytes(GW, W, hd, tile);
+size_t paged_attention_smem_bytes(int rows, int W, int hd, int tile) {
+  return attn::smem_bytes(rows, W, hd, tile);
 }
 
 const char* paged_attention_error_string(int err) {
@@ -258,12 +261,12 @@ int paged_tree_attention(int q_dtype, int pool_dtype, const void* q,
                          const void* table, const void* key_pos,
                          const void* q_pos, const void* lo, const void* mask,
                          void* out, int B, int W, int Hq, int Hkv, int hd,
-                         int ps, int maxp, int tile, float scale,
+                         int ps, int maxp, int tile, int rows, float scale,
                          void* stream) {
   Ptrs p{q, pk, pv, sk, sv, kn, vn, table, key_pos, q_pos, lo, mask,
          out, nullptr, nullptr, nullptr};
   return by_q<true>(q_dtype, pool_dtype, p, B, W, Hq, Hkv, hd, ps, maxp, tile,
-                    scale, static_cast<cudaStream_t>(stream));
+                    rows, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Cache-only page walk (paged_cache_attention): writes the partials o, m, l.
@@ -273,11 +276,11 @@ int paged_cache_attention(int q_dtype, int pool_dtype, const void* q,
                           const void* key_pos, const void* q_pos,
                           const void* lo, void* o, void* m, void* l, int B,
                           int W, int Hq, int Hkv, int hd, int ps, int maxp,
-                          int tile, float scale, void* stream) {
+                          int tile, int rows, float scale, void* stream) {
   Ptrs p{q, pk, pv, sk, sv, nullptr, nullptr, table, key_pos, q_pos, lo,
          nullptr, nullptr, o, m, l};
   return by_q<false>(q_dtype, pool_dtype, p, B, W, Hq, Hkv, hd, ps, maxp,
-                     tile, scale, static_cast<cudaStream_t>(stream));
+                     tile, rows, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,10 +13,13 @@
 // can arise; a row that sees no valid cache slot keeps m = NEG_INF until
 // the tree part (which always holds the node itself) arrives.
 //
-// Design.  One thread block per (batch row b, kv head h), with the shared
-// pieces of attention_common.cuh: the G*W query rows that read kv head h
-// (query head h*G + g, row r = g*W + w, the reference's grouping) sit in
-// shared memory in fp32 with their o, m and l accumulators.  A loop inside
+// Design.  One thread block per (batch row b, kv head h, tile of R query
+// rows), with the shared pieces of attention_common.cuh: the query rows
+// that read kv head h (query head h*G + g, row r = g*W + w, the reference's
+// grouping) sit in shared memory in fp32 with their o, m and l
+// accumulators; R covers all G*W rows unless they overflow a block's shared
+// memory (a W=256 prefill piece), and then each row tile re-reads the
+// row's cache.  A loop inside
 // the block walks the S cache slots in tiles of `tile` (16-byte vector
 // loads of K and V into shared memory, converted to fp32; empty slots,
 // key_pos < 0, are neither loaded nor attended), then the W tree nodes
@@ -29,8 +32,9 @@
 // read once, dominate (at the main path's vicuna-7b shape, B=4, S~600,
 // Hkv=32, hd=128, bf16: ~38 MB per launch, ~11 us at 3.35 TB/s), while the
 // G*W*(S+W)*hd*4 flops are far below the tensor-core ridge.  The design
-// reads every cache byte exactly once (no re-reads across query rows: the
-// G*W rows share each K/V tile) and keeps everything else on chip.  It does
+// reads every cache byte once per row tile (the rows of a tile share each
+// K/V tile; the main path's G*W = 8 rows are one tile) and keeps
+// everything else on chip.  It does
 // not yet split over S: with B*Hkv blocks (128 at the main path) each SM
 // walks its whole row with synchronous loads, so it is latency-bound well
 // above the byte bound.  A split-KV pass with an Eq.-1 merge, cp.async/TMA
@@ -53,7 +57,7 @@ struct Args {
   const int* lo;          // (B, W)
   const uint8_t* mask;    // (W, W) bool
   T* out;                 // (B, W, Hq, hd)
-  int B, W, Hq, Hkv, hd, S, tile;
+  int B, W, Hq, Hkv, hd, S, tile, rows;
   float scale;
 };
 
@@ -66,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel(Args<T> a) {
   const int G = a.Hq / a.Hkv;
   const int GW = G * W;
   const int tid = threadIdx.x;
-  const Smem s = carve(smem, GW, W, hd, TS);
+  const Smem s = carve(smem, GW, a.rows, W, hd, TS);
 
   load_queries(s, a.q, b, h, W, a.Hq, G, hd);
   for (int w = tid; w < W; w += kThreads) {
@@ -104,26 +108,28 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel(Args<T> a) {
       }
     }
     // ---- validity: filled, causal, inside the window
-    for (int i = tid; i < GW * TS; i += kThreads) {
-      const int r = i / TS, t = i % TS, w = r % W;
+    for (int i = tid; i < s.nr * TS; i += kThreads) {
+      const int t = i % TS, w = (s.r0 + i / TS) % W;
       const int kp = s.kp[t];
       s.ok[i] = kp >= 0 && kp <= s.qpos[w] && kp > s.lo[w];
     }
     __syncthreads();
-    attend_tile(s, GW, TS, hd, a.scale);
+    attend_tile(s, TS, hd, a.scale);
   }
-  attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, GW, hd, TS, a.scale);
+  attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, hd, TS, a.scale);
   store_normalized(s, a.out, b, h, W, a.Hq, G, hd);
 }
 
 template <typename T>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.Hq / a.Hkv * a.W, a.W, a.hd, a.tile);
+  const size_t smem = smem_bytes(a.rows, a.W, a.hd, a.tile);
   cudaError_t err = cudaFuncSetAttribute(
       verify_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  verify_attention_kernel<T><<<a.B * a.Hkv, kThreads, smem, stream>>>(a);
+  const int GW = a.Hq / a.Hkv * a.W;
+  const dim3 grid(a.B * a.Hkv, (GW + a.rows - 1) / a.rows);
+  verify_attention_kernel<T><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -131,7 +137,8 @@ template <typename T>
 int run(const void* q, const void* ck, const void* cv, const void* kn,
         const void* vn, const void* key_pos, const void* q_pos,
         const void* lo, const void* mask, void* out, int B, int W, int Hq,
-        int Hkv, int hd, int S, int tile, float scale, void* stream) {
+        int Hkv, int hd, int S, int tile, int rows, float scale,
+        void* stream) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.ck = static_cast<const T*>(ck);
@@ -150,6 +157,7 @@ int run(const void* q, const void* ck, const void* cv, const void* kn,
   a.hd = hd;
   a.S = S;
   a.tile = tile;
+  a.rows = rows;
   a.scale = scale;
   return launch(a, static_cast<cudaStream_t>(stream));
 }
@@ -158,8 +166,8 @@ int run(const void* q, const void* ck, const void* cv, const void* kn,
 
 extern "C" {
 
-size_t verify_attention_smem_bytes(int GW, int W, int hd, int tile) {
-  return attn::smem_bytes(GW, W, hd, tile);
+size_t verify_attention_smem_bytes(int rows, int W, int hd, int tile) {
+  return attn::smem_bytes(rows, W, hd, tile);
 }
 
 const char* verify_attention_error_string(int err) {
@@ -170,18 +178,20 @@ int verify_attention_f32(const void* q, const void* ck, const void* cv,
                          const void* kn, const void* vn, const void* key_pos,
                          const void* q_pos, const void* lo, const void* mask,
                          void* out, int B, int W, int Hq, int Hkv, int hd,
-                         int S, int tile, float scale, void* stream) {
+                         int S, int tile, int rows, float scale,
+                         void* stream) {
   return run<float>(q, ck, cv, kn, vn, key_pos, q_pos, lo, mask, out, B, W,
-                    Hq, Hkv, hd, S, tile, scale, stream);
+                    Hq, Hkv, hd, S, tile, rows, scale, stream);
 }
 
 int verify_attention_bf16(const void* q, const void* ck, const void* cv,
                           const void* kn, const void* vn, const void* key_pos,
                           const void* q_pos, const void* lo, const void* mask,
                           void* out, int B, int W, int Hq, int Hkv, int hd,
-                          int S, int tile, float scale, void* stream) {
+                          int S, int tile, int rows, float scale,
+                          void* stream) {
   return run<__nv_bfloat16>(q, ck, cv, kn, vn, key_pos, q_pos, lo, mask, out,
-                            B, W, Hq, Hkv, hd, S, tile, scale, stream);
+                            B, W, Hq, Hkv, hd, S, tile, rows, scale, stream);
 }
 
 }  // extern "C"

@@ -79,3 +79,11 @@ def sparse_tree_attention_partial(q, k_new, v_new, tree_mask):
     """Tree half of the split verify: ``(o, m, l)`` partials of the W x W
     masked tree attention, merged with ``paged_cache_attention``'s."""
     return _tree.sparse_tree_attention_partial(q, k_new, v_new, tree_mask)
+
+
+def sparse_tree_attention(q, k_new, v_new, tree_mask):
+    """The W x W tree-correlation attention alone, normalized (the Fig. 10b
+    study's block-masked kernel; counterpart of ``repro/kernels/ops.py::
+    sparse_tree_attention``): a CUDA tensor launches the kernel, a CPU
+    tensor runs its plain version."""
+    return _tree.sparse_tree_attention(q, k_new, v_new, tree_mask)

@@ -21,7 +21,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import check_common, launch, pick_tile
+from repro_torch.kernels.launch import (Counted, check_common, launch,
+                                        pick_tiles)
 from repro_torch.kernels.plain import (paged_cache_attention_plain,
                                        paged_tree_attention_plain)
 
@@ -36,9 +37,9 @@ def _bind():
     """Build (first use) and load the library, and declare every C
     signature: pointers and the stream as ``c_void_p``."""
     lib = build.load("paged_attention")
-    lib.paged_tree_attention.argtypes = ([_I, _I] + [_P] * 13 + [_I] * 8
+    lib.paged_tree_attention.argtypes = ([_I, _I] + [_P] * 13 + [_I] * 9
                                          + [ctypes.c_float, _P])
-    lib.paged_cache_attention.argtypes = ([_I, _I] + [_P] * 12 + [_I] * 8
+    lib.paged_cache_attention.argtypes = ([_I, _I] + [_P] * 12 + [_I] * 9
                                           + [ctypes.c_float, _P])
     lib.paged_tree_attention.restype = _I
     lib.paged_cache_attention.restype = _I
@@ -110,16 +111,19 @@ def _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos, q_pos,
     return B, W, Hq, Hkv, hd, ps, maxp
 
 
-def _launch(fn_name, q, pool_k, dims, operands):
+def _launch(wrapper, q, pool_k, dims, operands):
     B, W, Hq, Hkv, hd, ps, maxp = dims
     lib = _bind()
-    tile = pick_tile(lib.paged_attention_smem_bytes, Hq // Hkv * W, W, hd)
-    launch(fn_name, getattr(lib, fn_name), lib.paged_attention_error_string,
-           q.device, _Q_CODES[q.dtype], _POOL_CODES[pool_k.dtype],
+    tile, rows = pick_tiles(lib.paged_attention_smem_bytes, Hq // Hkv * W,
+                            W, hd)
+    launch(wrapper, getattr(lib, wrapper.__name__),
+           lib.paged_attention_error_string, q.device, _Q_CODES[q.dtype],
+           _POOL_CODES[pool_k.dtype],
            *(None if t is None else t.data_ptr() for t in operands),
-           B, W, Hq, Hkv, hd, ps, maxp, tile, hd ** -0.5)
+           B, W, Hq, Hkv, hd, ps, maxp, tile, rows, hd ** -0.5)
 
 
+@Counted
 def paged_tree_attention(q, pool_k, pool_v, scale_k, scale_v, k_new, v_new,
                          block_table, key_pos, q_pos, lo, tree_mask):
     """See ``paged_tree_attention_plain`` for the semantics and layout."""
@@ -133,13 +137,13 @@ def paged_tree_attention(q, pool_k, pool_v, scale_k, scale_v, k_new, v_new,
     dims = _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos,
                   q_pos, lo, k_new, v_new, tree_mask)
     out = torch.empty_like(q)
-    _launch("paged_tree_attention", q, pool_k, dims,
+    _launch(paged_tree_attention, q, pool_k, dims,
             (q, pool_k, pool_v, scale_k, scale_v, k_new, v_new, block_table,
              key_pos, q_pos, lo, tree_mask, out))
-    paged_tree_attention.launches += 1
     return out
 
 
+@Counted
 def paged_cache_attention(q, pool_k, pool_v, scale_k, scale_v, block_table,
                           key_pos, q_pos, lo):
     """See ``paged_cache_attention_plain``: returns the unnormalized
@@ -157,12 +161,7 @@ def paged_cache_attention(q, pool_k, pool_v, scale_k, scale_v, block_table,
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
     l = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
-    _launch("paged_cache_attention", q, pool_k, dims,
+    _launch(paged_cache_attention, q, pool_k, dims,
             (q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos,
              q_pos, lo, o, m, l))
-    paged_cache_attention.launches += 1
     return o, m, l
-
-
-paged_tree_attention.launches = 0
-paged_cache_attention.launches = 0

@@ -81,3 +81,12 @@ def sparse_tree_attention_partial_plain(q, k_new, v_new, tree_mask):
     fresh tree KVs."""
     return cm.gqa_attend_partial(q, k_new, v_new, tree_mask[None, None],
                                  q.shape[-1] ** -0.5)
+
+
+def sparse_tree_attention_plain(q, k_new, v_new, tree_mask):
+    """The tree part alone, normalized (counterpart of
+    ``repro/kernels/ref.py::sparse_tree_ref``): the W x W ancestor-masked
+    attention of the tree queries over the fresh tree KVs, (B, W, Hq, hd) in
+    q's dtype."""
+    return cm.gqa_attend(q, k_new, v_new, tree_mask[None, None],
+                         q.shape[-1] ** -0.5)

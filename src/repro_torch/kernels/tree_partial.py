@@ -1,11 +1,14 @@
-"""Tree half of the split verify: the wrapper of the hand-written CUDA
-kernel ``csrc/tree_partial.cu`` (counterpart of the Pallas
-``repro/kernels/sparse_tree.py::sparse_tree_attention_partial``).
+"""The W x W masked tree attention: the wrappers of the hand-written CUDA
+kernel ``csrc/tree_partial.cu`` (counterparts of the Pallas
+``repro/kernels/sparse_tree.py::sparse_tree_attention_partial`` and
+``::sparse_tree_attention``).
 
-``sparse_tree_attention_partial`` takes the plain version's exact
-arguments.  A CPU tensor runs ``sparse_tree_attention_partial_plain``; a
-CUDA tensor launches the kernel or raises.  ``.launches`` counts kernel
-launches and nothing else.
+``sparse_tree_attention_partial`` (the split verify's tree half, the
+unnormalized ``(o, m, l)`` partials) and ``sparse_tree_attention`` (the
+tree part alone, normalized, in q's dtype) take their plain versions'
+exact arguments.  A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel or raises.  Each wrapper's ``.launches`` counts its
+kernel's launches and nothing else.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import check_common, launch, pick_tile
-from repro_torch.kernels.plain import sparse_tree_attention_partial_plain
+from repro_torch.kernels.launch import (Counted, check_common, launch,
+                                        pick_tiles)
+from repro_torch.kernels.plain import (sparse_tree_attention_partial_plain,
+                                       sparse_tree_attention_plain)
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -29,7 +34,10 @@ def _bind():
     signature: pointers and the stream as ``c_void_p``."""
     lib = build.load("tree_partial")
     f = lib.sparse_tree_attention_partial
-    f.argtypes = [_I] + [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+    f.argtypes = [_I] + [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
+    f.restype = _I
+    f = lib.sparse_tree_attention
+    f.argtypes = [_I] + [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]
     f.restype = _I
     lib.tree_partial_smem_bytes.argtypes = [_I] * 4
     lib.tree_partial_smem_bytes.restype = ctypes.c_size_t
@@ -66,28 +74,48 @@ def _check(q, k_new, v_new, tree_mask):
     return B, W, Hq, Hkv, hd
 
 
+def _launch(wrapper, q, k_new, v_new, tree_mask, outs):
+    """Check the operands and launch ``wrapper``'s entry point writing
+    ``outs``."""
+    B, W, Hq, Hkv, hd = _check(q, k_new, v_new, tree_mask)
+    lib = _bind()
+    tile, rows = pick_tiles(lib.tree_partial_smem_bytes, Hq // Hkv * W, W,
+                            hd)
+    launch(wrapper, getattr(lib, wrapper.__name__),
+           lib.tree_partial_error_string, q.device, _Q_CODES[q.dtype],
+           *(t.data_ptr() for t in (q, k_new, v_new, tree_mask) + outs),
+           B, W, Hq, Hkv, hd, tile, rows, hd ** -0.5)
+
+
+def _on_cuda(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
+
+
+@Counted
 def sparse_tree_attention_partial(q, k_new, v_new, tree_mask):
     """See ``sparse_tree_attention_partial_plain``: returns the unnormalized
     ``(o, m, l)`` partials of the W x W tree attention."""
     if q.device.type == "cpu":
         return sparse_tree_attention_partial_plain(q, k_new, v_new,
                                                    tree_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"sparse_tree_attention_partial runs on cuda or "
-                         f"cpu, got {q.device}")
-    B, W, Hq, Hkv, hd = _check(q, k_new, v_new, tree_mask)
-    lib = _bind()
-    tile = pick_tile(lib.tree_partial_smem_bytes, Hq // Hkv * W, W, hd)
+    _on_cuda("sparse_tree_attention_partial", q)
+    B, W, Hq = q.shape[:3]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
     l = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
-    launch("sparse_tree_attention_partial",
-           lib.sparse_tree_attention_partial, lib.tree_partial_error_string,
-           q.device, _Q_CODES[q.dtype],
-           *(t.data_ptr() for t in (q, k_new, v_new, tree_mask, o, m, l)),
-           B, W, Hq, Hkv, hd, tile, hd ** -0.5)
-    sparse_tree_attention_partial.launches += 1
+    _launch(sparse_tree_attention_partial, q, k_new, v_new, tree_mask,
+            (o, m, l))
     return o, m, l
 
 
-sparse_tree_attention_partial.launches = 0
+@Counted
+def sparse_tree_attention(q, k_new, v_new, tree_mask):
+    """See ``sparse_tree_attention_plain``: the normalized W x W tree
+    attention, (B, W, Hq, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return sparse_tree_attention_plain(q, k_new, v_new, tree_mask)
+    _on_cuda("sparse_tree_attention", q)
+    out = torch.empty_like(q)
+    _launch(sparse_tree_attention, q, k_new, v_new, tree_mask, (out,))
+    return out

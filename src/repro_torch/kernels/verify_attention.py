@@ -16,7 +16,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import check_common, launch, pick_tile
+from repro_torch.kernels.launch import (Counted, check_common, launch,
+                                        pick_tiles)
 from repro_torch.kernels.plain import tree_attention_plain
 
 _DTYPES = {torch.float32: "verify_attention_f32",
@@ -33,7 +34,7 @@ def _bind():
     lib = build.load("verify_attention")
     for fn in _DTYPES.values():
         f = getattr(lib, fn)
-        f.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+        f.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
         f.restype = _I
     lib.verify_attention_smem_bytes.argtypes = [_I] * 4
     lib.verify_attention_smem_bytes.restype = ctypes.c_size_t
@@ -78,6 +79,7 @@ def _check(q, ck, cv, k_new, v_new, key_pos, q_pos, lo, tree_mask):
     return B, W, Hq, Hkv, hd, S
 
 
+@Counted
 def verify_attention(q, ck, cv, k_new, v_new, key_pos, q_pos, lo,
                      tree_mask):
     """See ``tree_attention_plain`` for the semantics and layout."""
@@ -90,15 +92,12 @@ def verify_attention(q, ck, cv, k_new, v_new, key_pos, q_pos, lo,
     B, W, Hq, Hkv, hd, S = _check(q, ck, cv, k_new, v_new, key_pos, q_pos,
                                   lo, tree_mask)
     lib = _bind()
-    tile = pick_tile(lib.verify_attention_smem_bytes, Hq // Hkv * W, W, hd)
+    tile, rows = pick_tiles(lib.verify_attention_smem_bytes, Hq // Hkv * W,
+                            W, hd)
     out = torch.empty_like(q)
-    launch("verify_attention", getattr(lib, _DTYPES[q.dtype]),
+    launch(verify_attention, getattr(lib, _DTYPES[q.dtype]),
            lib.verify_attention_error_string, q.device,
            *(t.data_ptr() for t in (q, ck, cv, k_new, v_new, key_pos, q_pos,
                                     lo, tree_mask, out)),
-           B, W, Hq, Hkv, hd, S, tile, hd ** -0.5)
-    verify_attention.launches += 1
+           B, W, Hq, Hkv, hd, S, tile, rows, hd ** -0.5)
     return out
-
-
-verify_attention.launches = 0

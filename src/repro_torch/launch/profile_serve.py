@@ -1,8 +1,9 @@
-"""Where a serve run's time goes on the GPU: the fixed-batch serve of
-``launch/serve.py`` (same flags) run once to warm up, then once under
-``torch.profiler``.  Prints the wall time, the device-busy time (the union
-of all device activity intervals) and the idle share, and the device time
-by kernel class and by kernel, per decode step.
+"""Where a serve run's time goes on the GPU: a serve of ``launch/serve.py``
+(same flags: the fixed batch, or an in-process ``--arrivals poisson``
+replay) run once to warm up, then once under ``torch.profiler``.  Prints
+the wall time, the device-busy time (the union of all device activity
+intervals) and the idle share, and the device time by kernel class and by
+kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch vicuna-7b --mode ghidorah --width 8 --batch 4 \\
@@ -26,7 +27,7 @@ from repro_torch.launch import serve
 _CLASSES = (
     ("verify_attention", ("verify_attention",)),
     ("paged walk (B2/B3)", ("paged_attention_kernel",)),
-    ("tree partial (B4)", ("tree_partial_kernel",)),
+    ("tree kernels (B4/B5)", ("tree_partial_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
 )
@@ -57,6 +58,9 @@ def main(argv=None):
     args = serve.parse_args(argv)
     if args.device != "cuda":
         raise SystemExit("profile_serve measures the GPU: use --device cuda")
+    if serve._fault_tolerant(args):
+        raise SystemExit("profile_serve profiles the in-process serve: the "
+                         "router's replicas are not supported")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -70,6 +74,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     steps = res["stats"]["device_steps"]
+    pieces = res["stats"].get("extend_pieces", 0)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise SystemExit("the profiler recorded no device activity")
@@ -85,12 +90,17 @@ def main(argv=None):
     paged = (f" --paged --page-size {args.page_size} --kv-dtype "
              f"{args.kv_dtype} --tree-kernel {args.tree_kernel}"
              if args.paged else "")
+    if args.arrivals != "none":
+        paged += (f" --arrivals {args.arrivals} --rate {args.rate} "
+                  f"--requests {args.requests} --sched {args.sched} "
+                  f"--prefill-chunk {args.prefill_chunk}")
     print(f"[profile] {card}; {args.arch} --mode {args.mode} "
           f"--width {args.width} --batch {args.batch} --prompt-len "
           f"{args.prompt_len} --tokens {args.tokens} --chunk {args.chunk}"
           f"{paged}")
-    print(f"[profile] wall {wall_us / 1e3:.2f} ms (prefill + {steps} decode "
-          f"steps), device busy {busy / 1e3:.2f} ms, idle share "
+    print(f"[profile] wall {wall_us / 1e3:.2f} ms (prefills + {steps} decode "
+          f"steps + {pieces} prefill pieces), device busy "
+          f"{busy / 1e3:.2f} ms, idle share "
           f"{1 - busy / wall_us:.3f}, {len(dev)} device activities "
           f"({len(dev) / max(steps, 1):.0f} per step incl. prefill)")
     for label, us in by_class.most_common():

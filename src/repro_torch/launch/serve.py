@@ -1,15 +1,31 @@
 """Serving launcher: batched Ghidorah speculative serving or batched
 sequential serving with the chunked decode loop (one host sync per
-``--chunk`` steps), on the GPU unless ``--device cpu`` is given.
+``--chunk`` steps), on the GPU unless ``--device cpu`` is given
+(counterpart of ``repro/launch/serve.py``: same flags, defaults, checks
+and summary lines).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vicuna-7b \\
       --mode ghidorah --width 8 --tokens 64 --batch 4 --chunk 8
 
-It serves one fixed batch of ``--batch`` prompts, prefilled together and
-decoded to the token budget (the fixed-batch path of
-``repro/launch/serve.py``, same flags, defaults, checks and summary
-lines), on the dense per-row KV cache or, with ``--paged``, on the shared
-page pool:
+Two serving shapes:
+
+* default (``--arrivals none``): one fixed batch of ``--batch`` prompts,
+  prefilled together and decoded to the token budget;
+* replay (``--arrivals poisson --rate R --requests N``): N requests arrive
+  as a rate-R Poisson process and flow through ``runtime/continuous.py``:
+  ``--sched continuous`` admits and evicts per sequence at chunk
+  boundaries (``--policy fifo|sjf|lpt``, ``--age-limit N``,
+  ``--prefill-chunk N`` for piecewise admission of long prompts), and
+  ``--sched static`` is the fixed-group baseline.  ``--replicas N``,
+  ``--deadline-s``, ``--cancel-rate`` and ``--inject-faults SEED`` run the
+  replay through the async server and router (``runtime/server.py``,
+  ``runtime/router.py``) with the seeded chaos plan of
+  ``runtime/faults.py``; that run exits non-zero unless every request
+  reaches a terminal state and every replica's page pool drains.  The
+  replicas share one loaded copy of the weights.
+
+Either runs on the dense per-row KV cache or, with ``--paged``, on the
+shared page pool:
 
   ... --paged [--page-size 16] [--pool-pages 0] [--kv-dtype int8] \
       [--tree-kernel sparse]
@@ -20,12 +36,13 @@ quantized pages).  ``--tree-kernel sparse`` splits the paged verify into
 the page walk and the tree partial.  Throughput counts REAL emitted tokens
 (``stats["emitted_total"]``), not the EOS padding in the output buffer.
 Weights are random, drawn from ``--seed``.  The flags of later slices
-(``--tree-kernel auto``, HCMP, arrival replay, measured ARCA, checkpoints)
-exit with a "not yet ported" error.
+(``--tree-kernel auto``, HCMP, ``--spec-width``, ``--width 0``,
+checkpoints) exit with a "not yet ported" error.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import time
 from typing import Any, Optional
@@ -39,12 +56,17 @@ from repro_torch.core.speculative.medusa import init_medusa
 from repro_torch.data.pipeline import MarkovDataset
 from repro_torch.devices import resolve_device
 from repro_torch.models.api import get_model
+from repro_torch.runtime.continuous import (ContinuousScheduler, Request,
+                                            poisson_arrivals, serve_static)
 from repro_torch.runtime.engine import BatchEngine, SpeculativeEngine
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.runtime.router import ReplicaRouter
+from repro_torch.runtime.router import replay as router_replay
+from repro_torch.runtime.server import AsyncEngineServer
 
 # flag -> (default, ROADMAP item that ports it)
 _LATER = {
-    "hcmp": ("inline", "A9"),
-    "arrivals": ("none", "A8"), "spec_width": (None, "A9"),
+    "hcmp": ("inline", "A9"), "spec_width": (None, "A9"),
     "ckpt": (None, "A12"), "heads_ckpt": (None, "A12"),
 }
 
@@ -62,6 +84,46 @@ def parse_args(argv=None):
     ap.add_argument("--chunk", type=int, default=8,
                     help="device-resident steps per host sync")
     ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--arrivals", default="none", choices=["none", "poisson"],
+                    help="replay a request-arrival process instead of one "
+                         "fixed batch")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="poisson arrival rate, requests/sec")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="number of requests in the replayed stream")
+    ap.add_argument("--sched", default="continuous",
+                    choices=["continuous", "static"],
+                    help="scheduler for --arrivals replay")
+    ap.add_argument("--policy", default="fifo",
+                    choices=["fifo", "sjf", "lpt"],
+                    help="admission policy for --sched continuous: fifo "
+                         "(arrival order), sjf (smallest reserved footprint "
+                         "first), lpt (largest first)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="admit prompts longer than N in N-token pieces "
+                         "(0 = whole-prompt admission)")
+    ap.add_argument("--age-limit", type=int, default=0,
+                    help="starvation bound for --policy sjf/lpt: a request "
+                         "passed over N boundaries is promoted to FIFO-head "
+                         "priority (0 = off)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the async router (>1 "
+                         "switches the replay to the server/router plane)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline (seconds, replica serve "
+                         "clock); expired requests finalize TIMED_OUT")
+    ap.add_argument("--cancel-rate", type=float, default=0.0,
+                    help="fraction of clients that disconnect mid-stream "
+                         "(deterministic per request id)")
+    ap.add_argument("--inject-faults", type=int, default=None,
+                    metavar="SEED",
+                    help="arm the seeded chaos plan: replica r0 crash (when "
+                         "--replicas > 1), chunk stalls, admission-time pool "
+                         "exhaustion; exits non-zero on a leaked page or a "
+                         "non-terminal request")
+    ap.add_argument("--queue-limit", type=int, default=64,
+                    help="bounded admission queue per replica; submits over "
+                         "it are REJECTED (backpressure)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; fails without a GPU) or cpu (the "
@@ -89,7 +151,6 @@ def parse_args(argv=None):
     # flags of later slices: parsed so that they fail with a clear message
     ap.add_argument("--hcmp", default="inline",
                     choices=["inline", "overlap", "auto"])
-    ap.add_argument("--arrivals", default="none", choices=["none", "poisson"])
     ap.add_argument("--spec-width", default=None)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--heads-ckpt", default=None)
@@ -115,6 +176,25 @@ def parse_args(argv=None):
     if args.prompt_len < 2:
         ap.error("--prompt-len must be >= 2 (one context token must "
                  "survive the next-token shift)")
+    if args.arrivals == "poisson":
+        if args.rate <= 0:
+            ap.error("--rate must be > 0 (poisson inter-arrivals are "
+                     "1/rate)")
+        if args.requests < 1:
+            ap.error("--requests must be >= 1")
+    if args.prefill_chunk < 0:
+        ap.error("--prefill-chunk must be >= 0 (0 disables chunked "
+                 "prefill)")
+    if args.age_limit < 0:
+        ap.error("--age-limit must be >= 0 (0 disables aging)")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.deadline_s is not None and args.deadline_s <= 0:
+        ap.error("--deadline-s must be > 0")
+    if not 0.0 <= args.cancel_rate <= 1.0:
+        ap.error("--cancel-rate must be in [0, 1]")
+    if args.queue_limit < 1:
+        ap.error("--queue-limit must be >= 1")
     if args.paged and args.page_size < 1:
         ap.error("--page-size must be >= 1")
     if args.pool_pages < 0:
@@ -129,7 +209,18 @@ def parse_args(argv=None):
         if args.mode != "ghidorah":
             ap.error("--tree-kernel sparse is a ghidorah option (sequential "
                      "decoding has no verification tree)")
+    if _fault_tolerant(args) and (args.arrivals != "poisson"
+                                  or args.sched != "continuous"):
+        ap.error("--replicas/--deadline-s/--cancel-rate/--inject-faults "
+                 "need --arrivals poisson --sched continuous (the async "
+                 "plane serves an arrival stream)")
     return args
+
+
+def _fault_tolerant(args) -> bool:
+    """Whether the replay must go through the async server/router plane."""
+    return (args.replicas > 1 or args.deadline_s is not None
+            or args.cancel_rate > 0 or args.inject_faults is not None)
 
 
 @dataclasses.dataclass
@@ -188,11 +279,114 @@ def build_engine(args, loaded: Loaded):
                              tree_kernel=args.tree_kernel, **paged_kw)
 
 
+def requests(cfg, args):
+    """The reference's replay stream: ``--requests`` Markov prompts with
+    Poisson arrivals at ``--rate`` from ``--seed``, ``--tokens`` each."""
+    data = MarkovDataset(cfg.vocab_size, seed=1)
+    toks = data.sample(args.requests, args.prompt_len, seed=11)[:, :-1]
+    arrivals = poisson_arrivals(args.requests, args.rate, seed=args.seed)
+    return [Request(req_id=i, tokens=toks[i].astype(np.int32),
+                    n_tokens=args.tokens, arrival=float(arrivals[i]))
+            for i in range(args.requests)]
+
+
+def _replay(args, loaded, eng) -> dict:
+    """Arrival replay through the continuous or the static scheduler, in
+    process; prints the reference's summary line."""
+    reqs = requests(loaded.cfg, args)
+    if args.sched == "continuous":
+        results, stats = ContinuousScheduler(
+            eng, batch=args.batch, chunk=args.chunk, policy=args.policy,
+            prefill_chunk=args.prefill_chunk,
+            age_limit=args.age_limit).serve(reqs)
+        label = f"{args.sched}/{stats['policy']}"
+        if stats["prefill_chunk"]:
+            label += f"+pc{stats['prefill_chunk']}"
+    else:
+        results, stats = serve_static(eng, reqs, batch=args.batch)
+        label = args.sched
+    print(f"[serve] {label} x{args.requests} reqs "
+          f"(poisson rate {args.rate}/s, B={args.batch}): "
+          f"{stats['emitted_total']} tokens in {stats['makespan_s']:.2f}s "
+          f"({stats['tok_s']:.1f} tok/s aggregate), "
+          f"latency mean {stats['latency_mean_s']:.2f}s "
+          f"p50 {stats['latency_p50_s']:.2f}s "
+          f"p95 {stats['latency_p95_s']:.2f}s, "
+          f"queue wait mean {stats['queue_wait_mean_s']:.2f}s "
+          f"p95 {stats['queue_wait_p95_s']:.2f}s")
+    return {"results": results, "stats": stats, "requests": reqs,
+            "engines": [eng]}
+
+
+def _replay_async(args, loaded, eng) -> dict:
+    """Fault-tolerant replay: the arrival stream flows through
+    ``--replicas`` servers behind the router (replica r0 serves on ``eng``,
+    the others on fresh engines over the same weights); with
+    ``--inject-faults`` the seeded chaos plan crashes r0 at its 6th
+    boundary, stalls chunks and blocks admissions.  Exits non-zero unless
+    every request is terminal and no replica leaked pages."""
+    reqs = requests(loaded.cfg, args)
+    plan = None
+    if args.inject_faults is not None:
+        crash = {"r0": 6} if args.replicas > 1 else {}
+        plan = FaultPlan(seed=args.inject_faults, crash=crash,
+                         stall_rate=0.05, stall_s=0.01, exhaust_rate=0.05,
+                         cancel_rate=args.cancel_rate)
+    elif args.cancel_rate > 0:
+        plan = FaultPlan(seed=args.seed, cancel_rate=args.cancel_rate)
+    engines = [eng] + [build_engine(args, loaded)
+                       for _ in range(args.replicas - 1)]
+    servers = []
+    for i, e in enumerate(engines):
+        name = f"r{i}"
+        sched = ContinuousScheduler(
+            e, batch=args.batch, chunk=args.chunk, policy=args.policy,
+            prefill_chunk=args.prefill_chunk, age_limit=args.age_limit,
+            faults=plan.injector(name) if plan is not None else None)
+        servers.append(AsyncEngineServer(sched, name=name,
+                                         queue_limit=args.queue_limit))
+    router = ReplicaRouter(
+        servers, seed=args.seed,
+        client_faults=plan.client() if plan is not None else None)
+
+    async def go():
+        await router.start(health_every_s=0.2)
+        try:
+            return await router_replay(router, reqs,
+                                       deadline_s=args.deadline_s)
+        finally:
+            await router.stop()
+
+    results, stats = asyncio.run(go())
+    drained = router.drained()
+    faulty = "faults on" if args.inject_faults is not None else "faults off"
+    print(f"[serve] router x{args.requests} reqs over {args.replicas} "
+          f"replica(s) ({faulty}): {stats['delivered_total']} tokens in "
+          f"{stats['makespan_s']:.2f}s ({stats['tok_s']:.1f} tok/s, "
+          f"goodput {stats['goodput_tok_s']:.1f} tok/s), "
+          f"states {stats['states']}, {stats['retries']} retried, "
+          f"routed {stats['routed']}, "
+          f"latency mean {stats['latency_mean_s']:.2f}s "
+          f"p95 {stats['latency_p95_s']:.2f}s, "
+          f"pages drained: {drained}")
+    if not stats["terminal"] or not drained:
+        raise SystemExit(
+            f"[serve] FAULT-TOLERANCE VIOLATION: terminal="
+            f"{stats['terminal']} drained={drained}")
+    return {"results": results, "stats": stats, "requests": reqs,
+            "engines": engines, "drained": drained}
+
+
 def run(args, loaded: Optional[Loaded] = None) -> dict:
-    """Serve the fixed batch once and print the reference's summary line.
-    Returns the tokens, the engine's stats and the wall time."""
+    """Serve once and print the reference's summary line.  The fixed batch
+    returns the tokens, the engine's stats and the wall time; a replay
+    returns its results, stats, requests and engines."""
     loaded = loaded or load(args)
     eng = build_engine(args, loaded)
+    if args.arrivals != "none":
+        if _fault_tolerant(args):
+            return _replay_async(args, loaded, eng)
+        return _replay(args, loaded, eng)
     batch = {"tokens": prompts(loaded.cfg, args)}
     if loaded.device.type == "cuda":
         torch.cuda.synchronize(loaded.device)

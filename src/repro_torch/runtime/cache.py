@@ -24,11 +24,12 @@ Paged (``PagedKVCache``)
   saturate at +-127).  Dequant is ``code * scale``.
 
 The reference's jits donate the cache; here the K/V tensors (and the paged
-pool) are updated in place, while ``key_pos``/``pos`` and the int8 scales
-(a few bytes per row or page) are rebuilt, so a caller holding the previous
-``key_pos``/``pos`` can still restore them.  The scheduler's row surgery
-(``insert_rows``, ``reset_rows``, ``slice_row``, ``write_row_at``) comes
-with ROADMAP A7b/A8.
+pool) are updated in place, while ``key_pos``/``pos``, the block tables
+and the int8 scales (a few bytes per row or page) are rebuilt, so a caller
+holding the previous ``key_pos``/``pos`` can still restore them.  The
+continuous scheduler's row surgery (``tile_rows``, ``blank_paged_rows``,
+``reset_rows``, ``insert_rows``, ``slice_row``, ``write_row_at``) follows
+the same rule.
 """
 from __future__ import annotations
 
@@ -385,6 +386,195 @@ def paginate_cache(cache: Cache, tables, *, page_size, n_pages,
     return dataclasses.replace(cache, kv=PagedKVCache(
         pool_k=pool_k, pool_v=pool_v, block_table=tables, key_pos=key_pos,
         pos=kv.pos, scale_k=sk, scale_v=sv, page_size=page_size))
+
+
+def _zero_page_scales(scale, pages, mask):
+    """Zero (un-arm) the per-page scales of the pool pages in ``pages``
+    where ``mask`` holds; returns a new tensor.  scale: (L, P, Hkv); pages:
+    int page ids (-1 = unreserved).  Non-targets redirect to the trash page,
+    whose scale is never read."""
+    P = scale.shape[1]
+    tgt = torch.where(mask & (pages >= 0), pages, P - 1).reshape(-1).long()
+    out = scale.clone()
+    out[:, tgt] = 0.0
+    return out
+
+
+# --------------------------------------------------------------------------
+# Per-row slot primitives of the continuous scheduler
+# (runtime/continuous.py).  A batched cache is a bank of B independent rows;
+# the scheduler admits sequences into rows and evicts them at chunk
+# boundaries, and every helper below touches only the rows it names.  This
+# slice ports the KV-only caches (the recurrent and cross-attention states
+# come with ROADMAP A11).
+# --------------------------------------------------------------------------
+def _set_row(t, row, value):
+    """A copy of the small per-row tensor ``t`` with ``t[row] = value``."""
+    out = t.clone()
+    out[row] = value
+    return out
+
+
+def tile_rows(cache: Cache, batch: int) -> Cache:
+    """Broadcast a batch-1 dense cache to ``batch`` identical rows (the
+    scheduler bootstraps its resident bank once from the first admission)."""
+    kv = cache.kv
+    return Cache(kv=KVCache(
+        k=kv.k.repeat_interleave(batch, dim=1),
+        v=kv.v.repeat_interleave(batch, dim=1),
+        key_pos=kv.key_pos.repeat_interleave(batch, dim=0),
+        pos=kv.pos.repeat_interleave(batch, dim=0), window=kv.window))
+
+
+def blank_paged_rows(row: Cache, batch: int, *, page_size, n_pages, max_len,
+                     kv_dtype=None) -> Cache:
+    """Paged bootstrap of the scheduler's resident bank from the first B=1
+    dense-prefilled admission: an EMPTY shared pool of ``n_pages`` pages
+    and ``batch`` unreserved rows, so no slot memory is spent on rows that
+    are still free.  ``kv_dtype`` picks the pool dtype (default: the
+    prefill's own; ``torch.int8`` = quantized pool)."""
+    dkv = row.kv
+    L, _, _, Hkv, hd = dkv.k.shape
+    return Cache(kv=init_paged_kv_cache(
+        L, batch, max_len, Hkv, hd, page_size=page_size, n_pages=n_pages,
+        dtype=dkv.k.dtype if kv_dtype is None else kv_dtype,
+        device=dkv.k.device))
+
+
+def reset_rows(cache: Cache, rows) -> Cache:
+    """Clear the rows where ``rows (B,)`` (a bool tensor) holds: ``key_pos``
+    -> -1 (every attention mask rejects the slot), ``pos`` -> 0, dense K/V
+    zeroed in place.  A freed row is inert until ``insert_rows`` installs a
+    freshly prefilled sequence.
+
+    Paged KV: the row's ``block_table`` entries drop to -1 (its pages go
+    back to the allocator host-side) and any write the dead row still
+    issues redirects to the trash page.  Quantized pools deliberately do
+    NOT touch the freed pages' scales here: the dead row's table is stale
+    bookkeeping (the scheduler releases pages at completion and batches row
+    resets to the END of the boundary), so by reset time a freed page may
+    already carry a new resident admitted earlier in the same boundary, and
+    zeroing its just-armed scale would let the next decode write re-arm it
+    from the wrong amax.  ``_paged_insert_row`` un-arms a reservation at
+    the only sound point: reserve time, zero then arm."""
+    kv = cache.kv
+    rows = torch.as_tensor(rows, dtype=torch.bool, device=kv.pos.device)
+    key_pos = torch.where(rows[:, None], -1, kv.key_pos).to(torch.int32)
+    pos = torch.where(rows, 0, kv.pos).to(torch.int32)
+    if isinstance(kv, PagedKVCache):
+        return Cache(kv=dataclasses.replace(
+            kv, key_pos=key_pos, pos=pos,
+            block_table=torch.where(rows[:, None], -1,
+                                    kv.block_table).to(torch.int32)))
+    idx = torch.nonzero(rows).reshape(-1)
+    kv.k[:, idx] = 0
+    kv.v[:, idx] = 0
+    return Cache(kv=KVCache(k=kv.k, v=kv.v, key_pos=key_pos, pos=pos,
+                            window=kv.window))
+
+
+def insert_rows(cache: Cache, row: int, src: Cache, *, pages=None) -> Cache:
+    """Copy row 0 of a batch-1 cache ``src`` into row ``row`` of ``cache``
+    (admission: the new request's B=1 prefill takes over the slot).  Dense
+    K/V are written in place.
+
+    When ``cache`` is paged, ``src`` is still DENSE (admission prefills at
+    B=1 in the dense layout) and ``pages (max_pages,)``, the row's fresh
+    reservation padded with -1, must be given: the prompt KV is scattered
+    through it into the shared pool."""
+    kv = cache.kv
+    if isinstance(kv, PagedKVCache):
+        if pages is None:
+            raise ValueError("paged insert_rows needs the row's pages")
+        return Cache(kv=_paged_insert_row(kv, row, src.kv, pages))
+    skv = src.kv
+    kv.k[:, row] = skv.k[:, 0].to(kv.k.dtype)
+    kv.v[:, row] = skv.v[:, 0].to(kv.v.dtype)
+    return Cache(kv=KVCache(k=kv.k, v=kv.v,
+                            key_pos=_set_row(kv.key_pos, row, skv.key_pos[0]),
+                            pos=_set_row(kv.pos, row, skv.pos[0]),
+                            window=kv.window))
+
+
+def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages
+                      ) -> PagedKVCache:
+    """Scatter a dense B=1 prefill into ``row``'s fresh page reservation.
+
+    Quantized pools un-arm the fresh reservation's scales FIRST, so the
+    prompt write re-arms them from the new resident's own amax.  This is
+    the only place recycled-page scales are cleared (``reset_rows`` must not
+    touch pool scales; see its docstring)."""
+    pages = torch.as_tensor(pages, dtype=torch.int32, device=kv.pos.device)
+    s_log = kv.max_len
+    abs_pos = dkv.key_pos[0]                                  # (S_dense,)
+    valid = (abs_pos >= 0) & (abs_pos >= dkv.pos[0] - s_log)
+    sk, sv = kv.scale_k, kv.scale_v
+    if sk is not None:
+        every = torch.ones(pages.shape, dtype=torch.bool, device=pages.device)
+        sk = _zero_page_scales(sk, pages, every)
+        sv = _zero_page_scales(sv, pages, every)
+    sk, sv, ok = _pool_scatter(kv.pool_k, kv.pool_v, pages[None], dkv.k,
+                               dkv.v, abs_pos[None], valid[None], sk, sv)
+    kp_row = _keypos_scatter(
+        torch.full((1, s_log), -1, dtype=torch.int32, device=pages.device),
+        abs_pos[None], ok)[0]
+    return dataclasses.replace(
+        kv, scale_k=sk, scale_v=sv,
+        block_table=_set_row(kv.block_table, row, pages),
+        key_pos=_set_row(kv.key_pos, row, kp_row),
+        pos=_set_row(kv.pos, row, dkv.pos[0]))
+
+
+def slice_row(cache: Cache, row: int) -> Cache:
+    """B=1 view of one bank row (the attention context a chunked-prefill
+    piece extends).  Paged caches share the pool by reference: only the
+    row's table, ``key_pos`` and ``pos`` are sliced, so the view costs
+    O(max_pages), not a pool copy; dense K/V are views of the bank."""
+    kv = cache.kv
+    r = slice(row, row + 1)
+    if isinstance(kv, PagedKVCache):
+        return Cache(kv=dataclasses.replace(
+            kv, block_table=kv.block_table[r], key_pos=kv.key_pos[r],
+            pos=kv.pos[r]))
+    return Cache(kv=KVCache(k=kv.k[:, r], v=kv.v[:, r], key_pos=kv.key_pos[r],
+                            pos=kv.pos[r], window=kv.window))
+
+
+def write_row_at(cache: Cache, row: int, ks, vs, start, n_valid) -> Cache:
+    """Partial-row insert at an offset (chunked prefill): write the first
+    ``n_valid`` of ``ks/vs (L, W, Hkv, hd)`` into row ``row`` at absolute
+    positions [start, start + n_valid) and advance only that row's ``pos``.
+
+    Dense rows take a masked ring write (entries past ``n_valid``, the tail
+    piece's padding, leave their slots as they were); paged rows scatter
+    through the row's block table, padding into the trash page.  Requires
+    W <= the row's logical length (piece slots must not alias)."""
+    kv = cache.kv
+    dev = kv.pos.device
+    W = ks.shape[1]
+    idx = torch.arange(W, dtype=torch.int32, device=dev)
+    valid = idx < n_valid
+    abs_pos = torch.as_tensor(start, dtype=torch.int32, device=dev) + idx
+    pos = _set_row(kv.pos, row, abs_pos[0] + n_valid)
+    if isinstance(kv, PagedKVCache):
+        sk, sv, ok = _pool_scatter(
+            kv.pool_k, kv.pool_v, kv.block_table[row:row + 1], ks[:, None],
+            vs[:, None], abs_pos[None], valid[None], kv.scale_k, kv.scale_v)
+        kp_row = _keypos_scatter(kv.key_pos[row:row + 1], abs_pos[None],
+                                 ok)[0]
+        return Cache(kv=dataclasses.replace(
+            kv, scale_k=sk, scale_v=sv,
+            key_pos=_set_row(kv.key_pos, row, kp_row), pos=pos))
+    slots = abs_pos.remainder(kv.max_len).long()
+    m = valid[None, :, None, None]
+    for cur, new in ((kv.k, ks), (kv.v, vs)):
+        cur[:, row, slots] = torch.where(m, new.to(cur.dtype),
+                                         cur[:, row, slots])
+    kp = kv.key_pos[row, slots]
+    key_pos = kv.key_pos.clone()
+    key_pos[row, slots] = torch.where(valid, abs_pos, kp)
+    return Cache(kv=KVCache(k=kv.k, v=kv.v, key_pos=key_pos, pos=pos,
+                            window=kv.window))
 
 
 # --------------------------------------------------------------------------

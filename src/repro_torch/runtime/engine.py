@@ -30,16 +30,24 @@ dense cache sized to the prompt and paginates it, so the tables reach the
 device once.  ``kv_dtype`` picks the pool's dtype (``int8`` = quantized
 pages); ``tree_kernel`` picks the fused or the split paged verify.
 
+Continuous batching: the ``sched_*`` methods are the slot protocol
+``runtime/continuous.py`` drives (``SchedulableEngine``): B=1 admission
+prefills spliced into a resident bank, batched row resets, chunked-prefill
+pieces (``sched_extend``) and the K-step chunk, with page reservations
+kept on the host.  ``sched_step`` brings the chunk's tokens, counts, done
+mask and budgets to the host in ONE transfer and hands the scheduler numpy
+arrays; an admission's first token stays an unsynced device scalar until
+the scheduler reads it.
+
 The KV cache is updated in place where the reference donates it.  The HCMP
-overlap runner, ``time_step`` and the ``sched_*`` slot protocol come with
-later slices (ROADMAP A6b, A8, A9); ``hcmp`` other than ``"inline"``
-raises ``NotImplementedError``.
+overlap runner and ``time_step`` come with a later slice (ROADMAP A9);
+``hcmp`` other than ``"inline"`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Dict, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -47,8 +55,11 @@ import torch
 from repro_torch.core.speculative.tree import Tree, TreeSpec, chain_spec
 from repro_torch.core.speculative.verify import (SpecState, spec_prefill,
                                                  spec_step)
-from repro_torch.runtime.cache import (Cache, PageAllocator, capacity_left,
-                                      pages_for, paginate_cache)
+from repro_torch.runtime.cache import (Cache, PageAllocator, _set_row,
+                                      blank_paged_rows, capacity_left,
+                                      insert_rows, pages_for, paginate_cache,
+                                      reset_rows, slice_row, tile_rows,
+                                      write_row_at)
 from repro_torch.runtime.sampling import greedy
 
 _NO_EOS = -1          # sentinel: no real token id is negative
@@ -75,6 +86,11 @@ def _kv_dtype(kv_dtype):
         raise ValueError(f"kv_dtype must be a name or a torch dtype, got "
                          f"{kv_dtype!r}")
     return kv_dtype
+
+
+def _eos_scalar(eos) -> int:
+    """The engine's EOS value: -1 (no real token id) when ``eos`` is None."""
+    return _NO_EOS if eos is None else int(eos)
 
 
 def _budget(n_tokens, batch) -> np.ndarray:
@@ -128,6 +144,50 @@ def _prefill_state(model, params, heads, batch, *, max_len, window):
                         window=window)
 
 
+def _insert_row(state, b, row, pages=None):
+    cache = insert_rows(state.cache, b, row.cache, pages=pages)
+    hid = None if state.hidden is None else \
+        _set_row(state.hidden, b, row.hidden[0])
+    return SpecState(cache=cache,
+                     cur_token=_set_row(state.cur_token, b, row.cur_token[0]),
+                     hidden=hid)
+
+
+def _reset_state_rows(state, mask):
+    # a freed slot must be fully inert, carry included: ``cur_token`` seeds
+    # the next chunk's decode input and ``hidden`` keeps driving (masked)
+    # drafts, so a stale carry is one masking bug away from leaking into a
+    # recycled page.  Clear the whole row.
+    mask = torch.as_tensor(mask, dtype=torch.bool,
+                           device=state.cur_token.device)
+    hid = None if state.hidden is None else \
+        torch.where(mask[:, None], 0, state.hidden).to(state.hidden.dtype)
+    return SpecState(cache=reset_rows(state.cache, mask),
+                     cur_token=torch.where(mask, 0, state.cur_token),
+                     hidden=hid)
+
+
+def _extend_row(model, params, state, b, tokens, n_valid, tree):
+    """Chunked-prefill piece: run ``tokens (1, C)`` through the causal
+    verify path (``tree`` = chain spec: plain causal attention at the row's
+    offset) against row ``b``'s cache view and splice the piece's KVs in.
+    The reference pins its plain attention here; the port has no backend
+    switch, so on the card the piece runs through the verify kernel at
+    W = C.  The drafting carry (``cur_token``/``hidden`` when present)
+    tracks the last REAL position, so the final piece leaves the row
+    exactly as a whole-prompt admission would."""
+    row_view = slice_row(state.cache, b)
+    logits, extras = model.verify(params, row_view, tokens, tree)
+    k1, v1 = extras["tree_kv"]                       # (L, 1, C, Hkv, hd)
+    cache = write_row_at(state.cache, b, k1[:, 0], v1[:, 0],
+                         row_view.kv.pos[0], n_valid)
+    last = greedy(logits[0, n_valid - 1])
+    hid = None if state.hidden is None else \
+        _set_row(state.hidden, b, extras["hidden"][0, n_valid - 1])
+    return SpecState(cache=cache, cur_token=_set_row(state.cur_token, b, last),
+                     hidden=hid), last
+
+
 def _seq_step(model, params, state, *, active):
     """One step of the degenerate width-1 strategy: plain one-token decode.
     Interface mirrors ``spec_step``: returns (state, emitted (B, 1), n (B,)
@@ -152,7 +212,180 @@ def _seq_step(model, params, state, *, active):
             nxt[:, None], active.to(torch.int64))
 
 
-class DecodeEngine:
+@runtime_checkable
+class SchedulableEngine(Protocol):
+    """The slot protocol ``runtime/continuous.py`` drives engines through
+    (the reference's ``SchedulableEngine``, method for method).  Every
+    method below is REQUIRED (called unconditionally at chunk boundaries)
+    except the last three, which the scheduler/server probe with
+    ``getattr``/``hasattr``.  Two optional properties, ``sched_chunked_ok``
+    and ``sched_pages_held``, are part of the wider contract but kept out of
+    this Protocol so it stays ``issubclass``-checkable.
+
+    Slot-state conventions: ``state`` is the opaque resident-bank carry,
+    ``row`` an opaque B=1 prefill result, ``b`` a bank slot index.
+    ``sched_step`` returns host (numpy) ``done``/``rem`` and a host raw
+    block; ``sched_admit``/``sched_extend`` return the first token as an
+    unsynced device scalar."""
+
+    # ---- admission sizing (host-side, no device work) --------------------
+    def sched_footprint(self, prompt_len: int, n_tokens: int) -> int: ...
+    def sched_can_admit(self, prompt_len: int, n_tokens: int) -> bool: ...
+
+    # ---- row lifecycle ---------------------------------------------------
+    def sched_prefill(self, batch): ...
+    def sched_first(self, row) -> int: ...
+    def sched_blank(self, row, batch): ...
+    def sched_insert(self, state, b, row, *, prompt_len=None,
+                     n_tokens=None): ...
+    def sched_admit(self, state, b, batch, *, n_tokens=None,
+                    reserve_len=None): ...
+    def sched_extend(self, state, b, tokens, n_valid): ...
+    def sched_reset(self, state, b): ...
+    def sched_release(self, b: int) -> None: ...
+
+    # ---- the chunk step --------------------------------------------------
+    def sched_step(self, state, done, rem, K, eos_val): ...
+    def sched_emitted(self, raw): ...
+
+    # ---- optional extensions (probed with getattr/hasattr) ---------------
+    def sched_abort(self, b: int) -> None: ...
+    def sched_pool_conserved(self) -> bool: ...
+    def sched_drained(self) -> bool: ...
+
+
+class _PagedPoolMixin:
+    """Page-reservation bookkeeping of paged engines, all on the host:
+    pages move between the free list and rows only at admission/eviction
+    boundaries (and once per ``generate``), so reservation never syncs the
+    device.  ``_overshoot`` is the engine's worst-case slots written past
+    the budget: one full accepted chain of the current strategy's
+    ``max_depth`` (1 for sequential), ratcheted to the deepest registered
+    candidate when runtime switching is armed."""
+
+    def _paged_init(self, *, paged, page_size, pool_pages):
+        if paged and self.window:
+            raise ValueError("paged KV supports full attention only "
+                             "(sliding windows stay dense: the ring IS the "
+                             "window)")
+        self.paged, self.page_size = paged, page_size
+        self.pool_pages = pool_pages
+        self.max_pages = pages_for(self.max_len, page_size) if paged else 0
+        self._alloc: Optional[PageAllocator] = None      # sched-bank state
+        self._row_pages = {}
+        self._extend_trees = {}     # piece width -> chain Tree
+
+    def _need_pages(self, prompt_len: int, budget: int, n_total: int) -> int:
+        return min(pages_for(prompt_len + budget + self._overshoot,
+                             self.page_size),
+                   self.max_pages, n_total)
+
+    def _reserve_tables(self, batch_size, prompt_len, budget):
+        """Per-row page reservations for a ``generate`` call, lowest page
+        ids first.  When the pool cannot cover a row's need the reservation
+        is PARTIAL: the row freezes at ``capacity_left`` with its shortfall
+        in ``n_emitted``; it never borrows a neighbour's pages."""
+        n_total = self.pool_pages or batch_size * self.max_pages
+        alloc = PageAllocator(n_total)
+        tables = np.full((batch_size, self.max_pages), -1, np.int32)
+        for b in range(batch_size):
+            pages = alloc.alloc_upto(
+                self._need_pages(prompt_len, int(budget[b]), n_total))
+            tables[b, :len(pages)] = pages
+        return torch.as_tensor(tables, device=self.device), n_total
+
+    # ---- scheduler-facing reservation hooks ------------------------------
+    def sched_footprint(self, prompt_len: int, n_tokens: int) -> int:
+        """Slot cost of a request, what SJF/LPT rank by: reserved pages
+        when paged, otherwise logical slots (prompt + budget +
+        overshoot)."""
+        need = int(prompt_len) + int(n_tokens) + self._overshoot
+        if self.paged:
+            return pages_for(need, self.page_size)
+        return need
+
+    @property
+    def sched_chunked_ok(self) -> bool:
+        """Whether this engine supports chunked prefill (piecewise
+        ``sched_extend`` admission): attention-only families with full
+        attention."""
+        return self.window == 0 and \
+            getattr(self.model, "family", "") in ("dense", "moe", "vlm")
+
+    def sched_can_admit(self, prompt_len: int, n_tokens: int) -> bool:
+        """False while the pool cannot fund the request's reservation: the
+        scheduler then DEFERS admission until evictions free pages.  A
+        request bigger than the whole pool caps at the pool."""
+        if not self.paged or self._alloc is None:
+            return True
+        return self._alloc.available >= self._need_pages(
+            prompt_len, n_tokens, self._alloc.n_pages)
+
+    def sched_release(self, b: int) -> None:
+        """Return an evicted row's pages to the pool (host-side; the row's
+        device-side table is cleared by the boundary's reset/insert before
+        the next chunk runs)."""
+        if self.paged and self._alloc is not None:
+            self._alloc.free(self._row_pages.pop(b, ()))
+
+    def sched_abort(self, b: int) -> None:
+        """Release a LIVE, unfinished row mid-flight (cancellation, expired
+        deadline, injected fault).  The caller MUST reset the row before
+        the next chunk runs; the scheduler's dirty-reset ordering does."""
+        self.sched_release(b)
+
+    @property
+    def sched_pages_held(self) -> int:
+        """Pages currently reserved by resident rows (0 when dense)."""
+        if not self.paged:
+            return 0
+        return sum(len(p) for p in self._row_pages.values())
+
+    def sched_pool_conserved(self) -> bool:
+        """Page-leak audit: the allocator's free + held equal the pool and
+        agree with the engine's per-row bookkeeping."""
+        if not self.paged or self._alloc is None:
+            return True
+        return (self._alloc.conserved
+                and self._alloc.outstanding == self.sched_pages_held)
+
+    def sched_drained(self) -> bool:
+        """True when every page is back on the free list and no row holds
+        a reservation."""
+        if not self.paged or self._alloc is None:
+            return True
+        return (not self._row_pages
+                and self._alloc.available == self._alloc.n_pages)
+
+    def _sched_pages(self, b: int, prompt_len: int, n_tokens: int):
+        """Allocate row ``b``'s reservation (gated by ``sched_can_admit``),
+        padded with -1 to the ``max_pages`` table width, on the device."""
+        pages = self._alloc.alloc(self._need_pages(prompt_len, n_tokens,
+                                                   self._alloc.n_pages))
+        self._row_pages[b] = pages
+        out = np.full((self.max_pages,), -1, np.int32)
+        out[:len(pages)] = pages
+        return torch.as_tensor(out, device=self.device)
+
+    # ---- chunked-prefill hook (runtime/continuous.py prefill_chunk) ------
+    def sched_extend(self, state, b, tokens, n_valid):
+        """One chunked-prefill piece: run ``tokens (1, C)`` (tail pieces
+        right-padded; ``n_valid`` real entries) through the causal verify
+        path against row ``b``'s cache and splice the piece's KVs in at the
+        row's offset.  Returns (state, the last real token as a device
+        scalar: after the final piece it is the request's first
+        emission)."""
+        C = int(tokens.shape[1])
+        if C not in self._extend_trees:
+            self._extend_trees[C] = Tree.from_spec(chain_spec(C),
+                                                   self.device)
+        return _extend_row(self.model, self.params, state, int(b),
+                           torch.as_tensor(tokens, dtype=torch.int32,
+                                           device=self.device),
+                           int(n_valid), self._extend_trees[C])
+
+
+class DecodeEngine(_PagedPoolMixin):
     """ONE serving engine for every decode strategy.
 
     ``strategy`` picks what a step does; ``heads`` are required exactly
@@ -186,46 +419,21 @@ class DecodeEngine:
         self.kv_dtype = kv_dtype
         self.model, self.params, self.heads = model, params, heads
         self.strategy = strategy
+        self._registered: Dict[int, DecodeStrategy] = {}
+        self._registered_depth = 0
         self.max_len, self.window = max_len, window
         self.chunk = chunk
         self._paged_init(paged=paged, page_size=page_size,
                          pool_pages=pool_pages)
         self.set_tree_kernel(tree_kernel)
 
-    # ---- paged pool (host-side reservations) -----------------------------
-    def _paged_init(self, *, paged, page_size, pool_pages):
-        if paged and self.window:
-            raise ValueError("paged KV supports full attention only "
-                             "(sliding windows stay dense: the ring IS the "
-                             "window)")
-        self.paged, self.page_size = paged, page_size
-        self.pool_pages = pool_pages
-        self.max_pages = pages_for(self.max_len, page_size) if paged else 0
-
+    # ---- paged pool --------------------------------------------------------
     @property
     def _overshoot(self) -> int:
         # worst case slots written past the budget: one full accepted chain
-        # (1 for sequential)
-        return self.strategy.tree.max_depth
-
-    def _need_pages(self, prompt_len: int, budget: int, n_total: int) -> int:
-        return min(pages_for(prompt_len + budget + self._overshoot,
-                             self.page_size),
-                   self.max_pages, n_total)
-
-    def _reserve_tables(self, batch_size, prompt_len, budget):
-        """Per-row page reservations for a ``generate`` call, lowest page
-        ids first.  When the pool cannot cover a row's need the reservation
-        is PARTIAL: the row freezes at ``capacity_left`` with its shortfall
-        in ``n_emitted``; it never borrows a neighbour's pages."""
-        n_total = self.pool_pages or batch_size * self.max_pages
-        alloc = PageAllocator(n_total)
-        tables = np.full((batch_size, self.max_pages), -1, np.int32)
-        for b in range(batch_size):
-            pages = alloc.alloc_upto(
-                self._need_pages(prompt_len, int(budget[b]), n_total))
-            tables[b, :len(pages)] = pages
-        return torch.as_tensor(tables, device=self.device), n_total
+        # (1 for sequential); with runtime switching armed, the deepest
+        # registered candidate (a switch must never outgrow a reservation)
+        return max(self.strategy.tree.max_depth, self._registered_depth)
 
     def _prefill_paged(self, tokens, tables, n_total):
         """Prefill into a transient dense cache sized to the prompt, then
@@ -272,6 +480,19 @@ class DecodeEngine:
                              f"{self.strategy.draft!r} -> {strategy.draft!r}"
                              " (the state carry differs)")
         self.strategy = strategy
+
+    def register_strategies(self, specs) -> Dict[int, DecodeStrategy]:
+        """Arm a candidate set for runtime switching: builds the
+        DecodeStrategy per width ONCE (switches then reuse them) and
+        ratchets the paged reservation overshoot to the deepest candidate so
+        a mid-request switch can never outgrow a row's page reservation.
+        ``specs``: {width: TreeSpec}."""
+        self._registered = {int(w): self.strategy_for(sp)
+                            for w, sp in specs.items()}
+        self._registered_depth = max(
+            [s.tree.max_depth for s in self._registered.values()],
+            default=0)
+        return self._registered
 
     # ---- the ONE chunk driver --------------------------------------------
     def _run_chunk(self, K, strategy, state, done, rem, eos_val):
@@ -386,6 +607,105 @@ class DecodeEngine:
         if B == 1 and self.strategy.draft == "medusa":
             return out[0], stats
         return out, stats
+
+
+    # ---- continuous-batching slot protocol (runtime/continuous.py) -------
+    def _tokens(self, batch):
+        return torch.as_tensor(batch["tokens"], device=self.device)
+
+    def sched_prefill(self, batch):
+        """B=1 prefill -> opaque row state.  Paged engines prefill at
+        prompt size (the dense row is a splice source, not a resident)."""
+        if self.paged:
+            return _prefill_state(self.model, self.params, self.heads,
+                                  {"tokens": self._tokens(batch)},
+                                  max_len=1, window=0)
+        return _prefill_state(self.model, self.params, self.heads,
+                              {"tokens": self._tokens(batch)},
+                              max_len=self.max_len, window=self.window)
+
+    @staticmethod
+    def sched_first(row) -> int:
+        return int(row.cur_token[0])
+
+    def sched_blank(self, row, batch):
+        """The resident bank of ``batch`` rows, bootstrapped from the first
+        admission's prefill: a fresh page pool (and allocator) when paged,
+        the prefilled row repeated when dense."""
+        if self.paged:
+            n_total = self.pool_pages or batch * self.max_pages
+            self._alloc = PageAllocator(n_total)
+            self._row_pages = {}
+            bank = blank_paged_rows(row.cache, batch,
+                                    page_size=self.page_size,
+                                    n_pages=n_total, max_len=self.max_len,
+                                    kv_dtype=self.kv_dtype)
+        else:
+            bank = tile_rows(row.cache, batch)
+        hid = None if row.hidden is None else \
+            row.hidden.repeat_interleave(batch, dim=0)
+        return SpecState(cache=bank,
+                         cur_token=row.cur_token.repeat_interleave(batch,
+                                                                   dim=0),
+                         hidden=hid)
+
+    def sched_insert(self, state, b, row, *, prompt_len=None, n_tokens=None):
+        if self.paged:
+            pages = self._sched_pages(b, prompt_len, n_tokens)
+            return _insert_row(state, int(b), row, pages=pages)
+        return _insert_row(state, int(b), row)
+
+    def sched_admit(self, state, b, batch, *, n_tokens=None,
+                    reserve_len=None):
+        """Prefill + insert; returns (state, first token as an unsynced
+        device scalar: the scheduler reads it when it needs it).
+        ``reserve_len`` overrides the page reservation's prompt length:
+        chunked prefill admits only the FIRST piece here but reserves for
+        the whole prompt."""
+        pages = None
+        if self.paged:
+            plen = reserve_len if reserve_len is not None \
+                else int(batch["tokens"].shape[1])
+            pages = self._sched_pages(b, plen, n_tokens)
+        row = self.sched_prefill(batch)
+        return _insert_row(state, int(b), row, pages=pages), row.cur_token[0]
+
+    def sched_reset(self, state, b):
+        mask = np.zeros((int(state.cur_token.shape[0]),), bool)
+        mask[b] = True
+        return _reset_state_rows(state, mask)
+
+    def sched_step(self, state, done, rem, K, eos_val):
+        """One K-step chunk over the bank from the host's ``done``/``rem``.
+        The chunk's tokens, counts, done mask and budgets come back in ONE
+        device-to-host transfer; returns (state, done, rem, (toks (K, B,
+        Dmax), ns (K, B))) with everything but the state as numpy."""
+        state, done, rem, toks, ns = self._run_chunk(
+            K, self.strategy, state,
+            torch.as_tensor(done, dtype=torch.bool, device=self.device),
+            torch.as_tensor(rem, device=self.device), int(eos_val))
+        B, D = toks.shape[1], toks.shape[2]
+        # the boundary's ONE host sync: every value the scheduler reads
+        host = torch.cat([toks.reshape(-1), ns.reshape(-1),
+                          done.to(torch.int64), rem.to(torch.int64)])
+        host = host.cpu().numpy()
+        n = K * B
+        return (state, host[n * (D + 1):n * (D + 1) + B] != 0, host[-B:],
+                (host[:n * D].reshape(K, B, D),
+                 host[n * D:n * (D + 1)].reshape(K, B)))
+
+    @staticmethod
+    def sched_emitted(raw):
+        """Per-row token lists of one chunk's host raw block."""
+        toks, ns = raw
+        K, B = ns.shape
+        out = [[] for _ in range(B)]
+        for k in range(K):
+            for b in range(B):
+                m = int(ns[k, b])
+                if m:
+                    out[b].extend(int(x) for x in toks[k, b, :m])
+        return out
 
 
 # ===========================================================================

@@ -88,3 +88,19 @@ def test_paged_cuda_calls_launch_or_raise():
     assert (pa.paged_tree_attention.launches,
             pa.paged_cache_attention.launches,
             tp.sparse_tree_attention_partial.launches) == n
+
+
+@pytest.mark.gpu
+def test_tree_kernels_match_plain_on_card():
+    """The normalized tree kernel (B5) and the tree partial (B4) over the
+    reference's sparse sweep, the Fig. 10b shape and the main path's W=8;
+    the dense verify (B1) and the page walk (B2) at a W=256 chain (two row
+    tiles).  Each call is one launch of its kernel."""
+    _need_gpu()
+    wrappers = (tp.sparse_tree_attention, tp.sparse_tree_attention_partial,
+                verify_attention, pa.paged_tree_attention)
+    before = [w.launches for w in wrappers]
+    worst = chip_smoke.phase_sparse_kernel_check(torch, np)
+    n = len(chip_smoke.sparse_case_list(np))
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [n, n, 1, 1]
+    assert max(worst.values()) < 2e-2

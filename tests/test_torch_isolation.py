@@ -54,11 +54,33 @@ SLICE_MODULES = ["repro_torch.runtime.cache",
                  "repro_torch.runtime.engine"]
 
 
+# the continuous-batching slice: row surgery and slot protocol (cache,
+# engine, above), scheduler, faults, server, router, serve entry point
+SERVING_MODULES = ["repro_torch.runtime.continuous",
+                   "repro_torch.runtime.faults",
+                   "repro_torch.runtime.server",
+                   "repro_torch.runtime.router",
+                   "repro_torch.launch.serve"]
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_paged_slice_module_imports_alone_with_jax_blocked(module):
     """Each module of the paged slice imports on its own in a fresh
     process where jax, the reference and triton cannot be imported, and
     builds nothing at import (no ``kernels/_build`` library is loaded)."""
+    _imports_alone(module)
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_plane_module_imports_alone_with_jax_blocked(module):
+    """The same for each module of the continuous-batching plane: it
+    imports neither jax nor ``repro.runtime.scheduler`` (the port keeps its
+    own copies of the host-only reference modules), starts no thread and
+    builds nothing."""
+    _imports_alone(module)
+
+
+def _imports_alone(module):
     assert module in _modules()
     code = (
         "import sys, importlib\n"
@@ -68,6 +90,8 @@ def test_paged_slice_module_imports_alone_with_jax_blocked(module):
         f"importlib.import_module({module!r})\n"
         "from repro_torch.kernels import build\n"
         "assert not build._loaded, build._loaded\n"
+        "import threading\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
         "bad = sorted(k for k, v in sys.modules.items() if v is not None\n"
         "             and k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
@@ -102,3 +126,14 @@ def test_reference_oracle_lookups_stay_unique():
     assert project.find("kernels/ops.py").rel == "repro/kernels/ops.py"
     names = {p.name for p in PORT.rglob("*.py")}
     assert not names & {"tree_attention.py", "sparse_tree.py"}
+
+
+def test_reference_scheduler_stays_the_one_model_checked():
+    """reprolint R9 explores the scheduler protocol only when exactly one
+    file ending in ``scheduler.py`` holds a ``ContinuousScheduler``: the
+    port's scheduler lives in ``runtime/continuous.py``."""
+    hits = [p.relative_to(SRC).as_posix() for p in SRC.rglob("*.py")
+            if p.name.endswith("scheduler.py")
+            and "class ContinuousScheduler" in p.read_text()]
+    assert hits == ["repro/runtime/scheduler.py"]
+    assert (PORT / "runtime" / "continuous.py").exists()

@@ -1,7 +1,8 @@
 """The port's serve entry point and ``chip_smoke.py`` on a machine without a
-GPU: ``--device cpu`` serves and prints the reference's summary line; the
-default device (cuda) and the chip smoke test fail loudly instead of
-running on the CPU."""
+GPU: ``--device cpu`` serves and prints the reference's summary line, for
+the fixed batch and for the arrival replay (continuous, static, and the
+router with injected faults); the default device (cuda) and the chip smoke
+test fail loudly instead of running on the CPU."""
 import os
 import re
 import shutil
@@ -13,10 +14,20 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
 SERVE = [sys.executable, "-m", "repro_torch.launch.serve"]
 SMOKE = ["--arch", "qwen2-0.5b-smoke", "--tokens", "12", "--batch", "2",
          "--chunk", "4", "--prompt-len", "8"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from intra-op threads, and the
+    test workers share the machine's cores: one torch thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run(cmd, cwd=ROOT):
@@ -53,7 +64,8 @@ def test_serve_without_gpu_fails_instead_of_running_on_cpu():
 
 @pytest.mark.parametrize("flags", [
     ["--paged", "--tree-kernel", "auto"], ["--hcmp", "auto"],
-    ["--hcmp", "overlap"], ["--arrivals", "poisson"], ["--spec-width", "4"],
+    ["--hcmp", "overlap"], ["--arrivals", "poisson", "--spec-width", "auto"],
+    ["--spec-width", "4"],
     ["--ckpt", "x"], ["--heads-ckpt", "x"], ["--width", "0"],
     ["--spec-width", "auto"],
 ])
@@ -124,3 +136,63 @@ def test_chip_smoke_fails_without_gpu_and_outside_a_checkout(tmp_path):
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
     assert "checkout" in res.stderr
+
+
+REPLAY = ["--arch", "vicuna-7b-smoke", "--device", "cpu", "--mode",
+          "ghidorah", "--width", "8", "--paged", "--page-size", "4",
+          "--batch", "4", "--prompt-len", "24", "--tokens", "12", "--chunk",
+          "8", "--arrivals", "poisson", "--rate", "50", "--requests", "12"]
+
+
+@pytest.mark.parametrize("flags,label", [
+    (["--sched", "continuous", "--prefill-chunk", "8"], "continuous/fifo+pc8"),
+    (["--sched", "continuous", "--policy", "sjf", "--kv-dtype", "int8"],
+     "continuous/sjf"),
+    (["--sched", "static"], "static"),
+])
+def test_replay_on_cpu_serves_every_request_and_drains(flags, label,
+                                                        capsys):
+    """The in-process replay: every request DONE with its full budget,
+    the reference's summary line, and the engine's pool conserved and
+    drained (the static baseline reserves per ``generate``, so its
+    scheduler pool stays untouched)."""
+    from repro_torch.launch import serve
+    res = serve.run(serve.parse_args(REPLAY + flags))
+    out = capsys.readouterr().out
+    assert re.search(rf"\[serve\] {re.escape(label)} x12 reqs \(poisson rate "
+                     rf"50.0/s, B=4\): 144 tokens in [\d.]+s", out), out
+    assert all(r.state == "DONE" and r.n_emitted == 12
+               for r in res["results"])
+    eng = res["engines"][0]
+    assert eng.sched_pool_conserved() and eng.sched_drained()
+    if "--prefill-chunk" in flags:
+        assert res["stats"]["extend_pieces"] == 12 * 2     # 23 = 8 + 8 + 7
+    assert res["stats"]["device_steps"] > 0
+
+
+def test_router_replay_with_faults_exits_zero_and_drains():
+    """``--replicas 2 --inject-faults``: r0 crashes at its 6th boundary,
+    its requests retry on r1; the run exits 0 only when every request is
+    terminal and every replica's pool drained."""
+    res = _run(SERVE + REPLAY + ["--replicas", "2", "--inject-faults", "3"])
+    assert res.returncode == 0, res.stderr
+    assert re.search(r"\[serve\] router x12 reqs over 2 replica\(s\) "
+                     r"\(faults on\): 144 tokens .*states \{'DONE': 12\}.*"
+                     r"pages drained: True", res.stdout), res.stdout
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--replicas", "2"], "need --arrivals poisson --sched continuous"),
+    (["--arrivals", "poisson", "--sched", "static", "--inject-faults", "1"],
+     "need --arrivals poisson --sched continuous"),
+    (["--arrivals", "poisson", "--rate", "0"], "--rate must be > 0"),
+    (["--prefill-chunk", "-1"], "--prefill-chunk must be >= 0"),
+    (["--cancel-rate", "2"], "--cancel-rate must be in [0, 1]"),
+])
+def test_replay_flag_errors_match_the_reference(flags, why, capsys):
+    from repro_torch.launch import serve
+    argv = SMOKE + ["--device", "cpu", "--width", "8"] + flags
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(argv)
+    assert e.value.code != 0
+    assert why in capsys.readouterr().err
