@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 1. Print the card's name and power limit (``nvidia-smi``); pin float32
    matmuls and convolutions to full precision (no TF32).
 2. Build every CUDA kernel of the port from the checkout's sources, one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together; count the tensor-core
+   products (HMMA) and async copies (LDGSTS) in the SASS of B1's and B2's
+   tensor-core instances (``cuobjdump -sass``).
 3. Hold each kernel against its plain PyTorch version on the card, at the
    reference's tolerances (fp32 2e-5, bf16 2e-2; every output finite):
    the dense verify kernel over the reference sweep (``tests/test_kernels.py``
@@ -18,8 +20,12 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    PAGED_INT8_CASES (fragmented tables, -1 entries, partial last pages);
    the normalized tree kernel and the tree partial over the reference's
    sparse sweep, the Fig. 10b shape and the main path's W=8; the dense
-   verify and the page walk at a W=256 chain (a prefill piece, two row
-   tiles); all of them at the main path's shapes.
+   verify and the page walk at a W=256 chain (a prefill piece, four row
+   tiles); the split-edge cases of B1 and B2 (SPLIT_EDGE: one, two, three
+   and one split per key tile; splits wholly unreserved, past the fill or
+   cut away by a window; a row whose cache is all masked; a ragged last
+   tile over an int8 pool; head_dim 16 to 128; bf16, int8 and fp32); all
+   of them at the main path's shapes.
 4. Serve ``vicuna-7b`` at full width with random bf16 weights through the
    port's serve entry point: ``--mode ghidorah --width 8`` and
    ``--mode sequential`` on the dense cache, then on the paged pool (page
@@ -39,9 +45,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    study's FLOP terms.  Time each kernel at the main path's shapes, the
    tree kernel at the Fig. 10b shape, and the dense verify and the page
    walk at the W=256 chain, with CUDA events (the cost of a call) and
-   under torch.profiler (the kernel's device time), beside its plain
-   version, one PyTorch library call where there is one, and its
-   memory/compute bound.
+   under torch.profiler (the device time of every kernel of one call: the
+   split walk and its merge for B1 and B2), beside its plain version, one
+   PyTorch library call where there is one (B3 and B4: the efficient
+   attention kernel with its log-sum-exp), and its memory/compute bound.
+   Time B1 and B2 at verify W=8 with the split that fills the card's
+   resident block slots once (the wrappers' rule) against one that fills
+   them twice.
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -402,6 +412,36 @@ def phase_build():
             if "registers" in line or "spill" in line or "error" in line \
                     or "warning" in line:
                 log(f"  {name}: {line.strip()}")
+    return sass_counts(build)
+
+
+def sass_counts(build):
+    """Tensor-core products (HMMA) and async copies (LDGSTS) in the SASS
+    of each tensor-core (bf16) instance of B1 and B2, from ``cuobjdump
+    -sass`` of the built libraries; fails if either is missing."""
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    counts = {}
+    for name in ("verify_attention", "paged_attention"):
+        path = build.library_path(name)
+        sass = subprocess.run([str(tool), "-sass", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            raise SmokeError(f"cuobjdump failed on {path.name}: "
+                             f"{sass.stderr.strip()}")
+        for fn in sass.stdout.split("Function : ")[1:]:
+            symbol = fn.split(None, 1)[0]
+            if "flash_kernel" not in symbol:
+                continue
+            key = f"{name}:{symbol}"
+            counts[key] = {op: fn.count(op) for op in ("HMMA", "LDGSTS")}
+            log(f"SASS {key}: {counts[key]}")
+            if not all(counts[key].values()):
+                raise SmokeError(f"{key} has no tensor-core product or no "
+                                 f"async copy: {counts[key]}")
+    if len(counts) != 3:
+        raise SmokeError(f"expected 3 tensor-core instances (B1 bf16, B2 "
+                         f"bf16 and int8 pools), found {sorted(counts)}")
+    return counts
 
 
 def main_path_tree(np):
@@ -580,6 +620,142 @@ def chain_cases(np):
                  pool_dtype="bfloat16", q_dtype="bfloat16", seed=4,
                  tree=chain_tree(np, CHAIN_W))
     return dense, paged
+
+
+# split-edge cases of phase 3 (B1 and B2 where the split walk's edges
+# show): S slots (320: 5 key tiles, 20 pages of 16; 592: the main path's
+# 37 pages, whose last key tile holds 16 slots), rows filled to S, 70 and
+# 200 slots; row 0 under a 100-position window (lo cuts its first splits
+# away), row 2 with lo = q_pos (its whole cache masked); in the paged
+# layout row 1's pages 4-7 unreserved (-1: a whole split) and pages past
+# each fill unreserved.  Hkv picks the split count (launch.pick_split
+# fills the card's 264 resident block slots): at S = 320, B*Hkv = 6
+# blocks give one split per tile, 72 three, 96 two, 144 one; at S = 592,
+# 24 give one per tile (10).  G*W <= 32 rows at head_dim 16 fold four and
+# two key groups in a block of 29 KB.  Label -> (Hkv, G, W, hd, q dtype,
+# pool dtype, S).
+SPLIT_EDGE = {
+    "per-tile G=4 W=8 bf16 hd=128": (2, 4, 8, 128, "bfloat16", "bfloat16",
+                                     320),
+    "per-tile G=1 W=1 bf16 hd=128": (2, 1, 1, 128, "bfloat16", "bfloat16",
+                                     320),
+    "per-tile G=6 W=8 bf16 hd=80": (2, 6, 8, 80, "bfloat16", "bfloat16",
+                                    320),
+    "per-tile G=12 W=8 bf16 hd=40": (2, 12, 8, 40, "bfloat16", "bfloat16",
+                                     320),
+    "per-tile G=1 W=8 bf16 hd=16": (2, 1, 8, 16, "bfloat16", "bfloat16",
+                                    320),
+    "per-tile G=4 W=8 bf16 hd=16": (2, 4, 8, 16, "bfloat16", "bfloat16",
+                                    320),
+    "per-tile G=2 W=8 int8 hd=64": (2, 2, 8, 64, "bfloat16", "int8", 320),
+    "per-tile G=2 W=8 fp32 hd=64": (2, 2, 8, 64, "float32", "float32", 320),
+    "per-tile G=2 W=8 fp32 q int8 hd=32": (2, 2, 8, 32, "float32", "int8",
+                                           320),
+    "3 splits G=1 W=8 bf16 hd=128": (24, 1, 8, 128, "bfloat16", "bfloat16",
+                                     320),
+    "2 splits G=1 W=8 int8 hd=64": (32, 1, 8, 64, "bfloat16", "int8", 320),
+    "1 split G=1 W=8 bf16 hd=64": (48, 1, 8, 64, "bfloat16", "bfloat16",
+                                   320),
+    "ragged S=592 per-tile G=1 W=8 int8 hd=128": (8, 1, 8, 128, "bfloat16",
+                                                  "int8", 592),
+    "ragged S=592 2 splits G=1 W=8 int8 hd=128": (32, 1, 8, 128,
+                                                  "bfloat16", "int8", 592),
+}
+EDGE_PS = 16
+
+
+def edge_fills(S):
+    """The split-edge rows' fills: the whole cache, 70 and 200 slots."""
+    return (S, 70, 200)
+
+
+def split_edge_inputs(torch, np, Hkv, G, W, hd, q_dtype, pool_dtype, S,
+                      seed):
+    """(dense args of ``verify_attention``, paged dict of ``paged_args``)
+    of one SPLIT_EDGE case from a numpy seed; the dense cache holds the
+    paged pool's logical view (float32 for an int8 pool's dequant), so
+    both walks see the same keys."""
+    rng = np.random.default_rng(seed)
+    fills = np.asarray(edge_fills(S), np.int32)
+    B, ps, Hq = len(fills), EDGE_PS, Hkv * G
+    maxp = -(-S // ps)
+    mask, depth = rand_tree(np, W, seed=W)
+    key_pos = np.full((B, S), -1, np.int32)
+    for b, f in enumerate(fills):
+        key_pos[b, :f] = np.arange(f)
+    q_pos = (fills[:, None] + depth[None, :]).astype(np.int32)
+    lo = np.full_like(q_pos, -1)
+    lo[0] = q_pos[0] - 100
+    lo[2] = q_pos[2]
+    n_pages = B * maxp
+    table = rng.permutation(n_pages).reshape(B, maxp).astype(np.int32)
+    table[1, 4:8] = -1
+    for b, f in enumerate(fills):
+        table[b, -(-f // ps):] = -1
+    key_pos[1, 4 * ps:8 * ps] = -1            # no key on an unreserved page
+    pool = rng.standard_normal((2, n_pages + 1, ps, Hkv, hd), np.float32)
+    qdt = getattr(torch, q_dtype)
+
+    def dev(a, dt=None):
+        t = torch.as_tensor(a).to(DEVICE)
+        return t if dt is None else t.to(dt)
+
+    if pool_dtype == "int8":
+        scale = (np.abs(pool).max(axis=(2, 4)) / 127.0).astype(np.float32)
+        codes = np.clip(np.round(pool / np.maximum(
+            scale, 1e-30)[:, :, None, :, None]), -127, 127).astype(np.int8)
+        view = codes.astype(np.float32) * scale[:, :, None, :, None]
+        pools = [dev(c) for c in codes]
+        scales = [dev(c) for c in scale]
+    else:
+        view = pool
+        pools = [dev(c, getattr(torch, pool_dtype)) for c in pool]
+        scales = [None, None]
+    # the logical view through the table (-1 -> the trash page, last)
+    t = np.where(table < 0, n_pages, table)
+    ck, cv = (view[i][t].reshape(B, S, Hkv, hd) for i in range(2))
+    q = rng.standard_normal((B, W, Hq, hd), np.float32)
+    kn, vn = rng.standard_normal((2, B, W, Hkv, hd), np.float32)
+    ints = [dev(a) for a in (key_pos, q_pos, lo)]
+    dense = (dev(q, qdt), dev(ck, qdt), dev(cv, qdt), dev(kn, qdt),
+             dev(vn, qdt), *ints, dev(mask))
+    paged = dict(q=dense[0], pool_k=pools[0], pool_v=pools[1],
+                 scale_k=scales[0], scale_v=scales[1], k_new=dense[3],
+                 v_new=dense[4], block_table=dev(table), key_pos=ints[0],
+                 q_pos=ints[1], lo=ints[2], tree_mask=dense[8])
+    return dense, paged
+
+
+def phase_split_edge_check(torch, np):
+    """B1 (dense, the pool's logical view in q's dtype) and B2 (paged)
+    against their plain versions over SPLIT_EDGE: one split per tile,
+    three, two and one; splits wholly unreserved, past the fill, cut away
+    by lo; a row whose cache is all masked; a last key tile of 16 slots
+    over an int8 pool; 1 to 96 query rows per kv head (four key groups to
+    two row tiles); head_dim 16, 40 (padded to 48), 64, 80, 128; bf16,
+    int8 and fp32 pools.  int8 under fp32 q is held at 2e-5 against the
+    int8 oracle (the plain version)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.kernels.verify_attention import verify_attention
+    worst = dict.fromkeys(("verify_attention", "paged_tree_attention"), 0.0)
+    for i, (label, case) in enumerate(SPLIT_EDGE.items()):
+        dense, paged = split_edge_inputs(torch, np, *case, seed=800 + i)
+        tol = TOL[str(dense[0].dtype)]
+        runs = {"verify_attention": (verify_attention(*dense),
+                                     plain.tree_attention_plain(*dense)),
+                "paged_tree_attention": (
+                    pa.paged_tree_attention(*paged_args(paged)),
+                    plain.paged_tree_attention_plain(*paged_args(paged)))}
+        torch.cuda.synchronize()
+        errs = []
+        for name, (got, want) in runs.items():
+            e = _hold(torch, name, f"split edge {label}", got, want, tol)
+            worst[name] = max(worst[name], e)
+            errs.append(f"{name} {e:.2e}")
+        log(f"split edge {label} (Hkv={case[0]}): max abs err "
+            f"{', '.join(errs)} (tol {tol})")
+    return worst
 
 
 def phase_sparse_kernel_check(torch, np):
@@ -953,21 +1129,25 @@ def timed(torch, fn, sets, iters=50, warm=5):
     return e0.elapsed_time(e1) / iters
 
 
-# device-side symbol of each kernel (its time in a torch.profiler trace)
-SYMBOLS = {"verify_attention": "verify_attention_kernel",
-           "paged_tree_attention": "paged_attention_kernel",
-           "paged_cache_attention": "paged_attention_kernel",
-           "sparse_tree_attention_partial": "tree_partial_kernel",
-           "sparse_tree_attention": "tree_partial_kernel"}
+# device-side symbols of the kernels one call launches (their time in a
+# torch.profiler trace): at the timed shapes (bf16 queries) the split
+# walks of B1 and B2 launch their tensor-core walk and the Eq.-1 merge
+SYMBOLS = {"verify_attention": ("verify_flash_kernel", "merge_kernel"),
+           "paged_tree_attention": ("paged_flash_kernel", "merge_kernel"),
+           "paged_cache_attention": ("paged_attention_kernel",),
+           "sparse_tree_attention_partial": ("tree_partial_kernel",),
+           "sparse_tree_attention": ("tree_partial_kernel",)}
 
 
-def device_ms(torch, fn, sets, symbol, iters=20):
-    """Mean device time of one launch of the kernel whose symbol contains
-    ``symbol``, from a torch.profiler trace of ``iters`` calls: the time of
-    the kernel alone, without the host's share of the call (CUDA events
-    around a loop of calls measure the slower of the two).  The profiler
-    may drop a launch at the edge of its window, so the mean is over the
-    launches it recorded, which must be most of them."""
+def device_ms(torch, fn, sets, symbols, iters=20):
+    """Mean device time of one call, from a torch.profiler trace of
+    ``iters`` calls: for each kernel symbol in ``symbols`` (every kernel
+    one call launches: a split walk and its merge), the mean time of its
+    launches, summed over the symbols.  The time of the kernels alone,
+    without the host's share of the call (CUDA events around a loop of
+    calls measure the slower of the two).  The profiler may drop a launch
+    at the edge of its window, so each mean is over the launches it
+    recorded, which must be most of them for every symbol."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
@@ -978,17 +1158,19 @@ def device_ms(torch, fn, sets, symbol, iters=20):
             for i in range(iters):
                 fn(sets[i % len(sets)])
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start
-                 for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and symbol in e.name]
-        if len(spans) >= iters // 2:
-            return sum(spans) / 1e3 / len(spans)
+        spans = {sym: [e.time_range.end - e.time_range.start
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and sym in e.name]
+                 for sym in symbols}
+        if all(len(v) >= iters // 2 for v in spans.values()):
+            return sum(sum(v) / len(v) for v in spans.values()) / 1e3
         # the trace lost most of the window's launches (seen on this card:
         # 1 of 20 recorded); a new window measures again, nothing is kept
-        log(f"the profiler saw {len(spans)} of {iters} launches of "
-            f"{symbol} in window {attempt + 1} of 3")
-    raise SmokeError(f"the profiler saw {len(spans)} launches of {symbol}, "
-                     f"expected {iters}, in 3 windows")
+        log(f"the profiler saw {({k: len(v) for k, v in spans.items()})} "
+            f"of {iters} launches in window {attempt + 1} of 3")
+    seen = {k: len(v) for k, v in spans.items()}
+    raise SmokeError(f"the profiler saw {seen} launches, expected {iters} "
+                     f"of each, in 3 windows")
 
 
 def bound(nbytes, ops, dtype):
@@ -1114,25 +1296,96 @@ def phase_paged_timing(torch, np, card):
             if W > 1 and pool == "int8":
                 parts = plain.paged_cache_attention_plain(
                     *paged_args(sets[0], tree=False))
+                lib_sets = [lse_inputs(torch, a, cache=True) for a in sets]
+                library_ms, note = lse_library(torch, lib_sets, parts)
                 record("B3 int8 pool W=8", "paged_cache_attention",
                        lambda a: pa.paged_cache_attention(
                            *paged_args(a, tree=False)),
                        lambda a: plain.paged_cache_attention_plain(
                            *paged_args(a, tree=False)),
-                       sets, parts, cache=True, tree=False)
+                       sets, parts, cache=True, tree=False,
+                       library_ms=library_ms, note=note)
+                del lib_sets
             if W > 1 and pool == "bfloat16":
                 def tree_in(a):
                     return a["q"], a["k_new"], a["v_new"], a["tree_mask"]
                 parts = plain.sparse_tree_attention_partial_plain(
                     *tree_in(sets[0]))
+                lib_sets = [lse_inputs(torch, a, cache=False) for a in sets]
+                library_ms, note = lse_library(torch, lib_sets, parts)
                 record("B4 W=8", "sparse_tree_attention_partial",
                        lambda a: tp.sparse_tree_attention_partial(
                            *tree_in(a)),
                        lambda a: plain.sparse_tree_attention_partial_plain(
                            *tree_in(a)),
-                       sets, parts, cache=False, tree=True)
+                       sets, parts, cache=False, tree=True,
+                       library_ms=library_ms, note=note)
+                del lib_sets
             del sets
     return rows
+
+
+def lse_inputs(torch, a, cache):
+    """Operands of ``aten._scaled_dot_product_efficient_attention`` for a
+    partial: heads first, bf16, kv heads repeated to the query heads, an
+    additive bf16 mask (0 where the key is seen, -inf elsewhere).  The
+    cache-only walk (B3) reads the pool's logical view dequantized to bf16
+    (the gather is not timed); the tree partial (B4) the tree KVs, its W
+    keys padded with masked zero keys to a multiple of 8 (the kernel's
+    bias alignment)."""
+    from repro_torch.runtime.cache import gather_pages_dequant
+    q = a["q"]
+    B, W, Hq, hd = q.shape
+    if cache:
+        k = gather_pages_dequant(a["pool_k"], a["scale_k"], a["block_table"])
+        v = gather_pages_dequant(a["pool_v"], a["scale_v"], a["block_table"])
+        kp = a["key_pos"][:, None, :]
+        seen = ((kp >= 0) & (kp <= a["q_pos"][..., None])
+                & (kp > a["lo"][..., None]))                      # (B, W, S)
+    else:
+        k, v = a["k_new"], a["v_new"]
+        seen = a["tree_mask"][None].expand(B, W, W)
+    pad = -k.shape[1] % 8
+    if pad:
+        z = k.new_zeros((B, pad) + tuple(k.shape[2:]))
+        k, v = torch.cat([k, z], 1), torch.cat([v, z], 1)
+        seen = torch.cat([seen, seen.new_zeros((B, W, pad))], 2)
+    G = Hq // k.shape[2]
+
+    def heads(t):
+        return t.transpose(1, 2).repeat_interleave(G, dim=1).to(
+            torch.bfloat16).contiguous()
+
+    bias = torch.zeros(seen.shape, dtype=torch.bfloat16, device=q.device)
+    bias.masked_fill_(~seen, float("-inf"))
+    return (q.transpose(1, 2).contiguous(), heads(k), heads(v),
+            bias[:, None].expand(B, Hq, W, k.shape[1]).contiguous())
+
+
+def lse_library(torch, lib_sets, parts):
+    """``library_ms`` of a partial kernel: one call of
+    ``aten._scaled_dot_product_efficient_attention(...,
+    compute_log_sumexp=True)``, which returns o normalized and the
+    log-sum-exp, the same partial in another form (o * l and m + log l);
+    checked against the plain version's partial before it is timed.
+    ``(None, why)`` if the call refuses these operands."""
+    def call(a):
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            a[0], a[1], a[2], a[3], True)
+    try:
+        out, lse = call(lib_sets[0])[:2]
+    except RuntimeError as e:
+        return None, f" (no library time: the efficient kernel refused: " \
+                     f"{str(e).splitlines()[0][:120]})"
+    o, m, l = parts
+    want = o / l.clamp(min=1e-30).transpose(1, 2)[..., None]
+    err = float((out.transpose(1, 2).float() - want).abs().max())
+    lse_err = float((lse[..., :m.shape[-1]].float()
+                     - (m + torch.log(l))).abs().max())
+    return timed(torch, call, lib_sets), (
+        f" (aten._scaled_dot_product_efficient_attention with the "
+        f"log-sum-exp; max abs diff to plain: o {err:.2e}, lse "
+        f"{lse_err:.2e})")
 
 
 def phase_sparse_study(torch, np, launches):
@@ -1277,6 +1530,65 @@ def phase_tree_timing(torch, np, card):
     return rows
 
 
+def phase_waves(torch, np, card):
+    """The split picker's rule, timed: B1 and B2 (bf16 pool) at verify
+    W=8, device time per call with the wrappers' split (as many splits as
+    fill the card's resident block slots once) and with twice as many
+    splits (the plan for twice the SMs: a second round of blocks), over the
+    same 4 input sets each.  Returns {kernel: {fill: (n_split, ms)}}."""
+    from repro_torch.kernels import launch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import verify_attention as va
+    real = launch.split_plan
+
+    def twice(smem, flash_smem, per_sm, sms, *rest, **kw):
+        return real(smem, flash_smem, per_sm, 2 * sms, *rest, **kw)
+
+    kw = dict(main_shapes(np))["verify W=8"]
+    dense = [attention_inputs(torch, np, seed=100 + r, **kw)
+             for r in range(4)]
+    paged = [paged_inputs(torch, np, **dict(k, seed=200 + r))
+             for r in range(4)
+             for label, k in paged_main_shapes(np, seed=r)
+             if label == "main bfloat16 pool verify W=8"]
+    sms = launch.sm_count(torch.device(DEVICE))
+    libs = {"verify_attention": (va._bind(), "verify_attention",
+                                 dense[0][0]),
+            "paged_tree_attention": (pa._bind(), "paged_attention",
+                                     paged[0]["q"])}
+    calls = {"verify_attention": (lambda a: va.verify_attention(*a), dense),
+             "paged_tree_attention": (
+                 lambda a: pa.paged_tree_attention(*paged_args(a)), paged)}
+    out = {}
+    for name, (lib, prefix, q) in libs.items():
+        per_sm = getattr(lib, f"{prefix}_flash_blocks_per_sm")
+        B, W, Hq, hd = q.shape
+        S = kw["S"] if name == "verify_attention" else \
+            paged[0]["key_pos"].shape[1]
+        ps = 1 if name == "verify_attention" else \
+            paged[0]["pool_k"].shape[1]
+        out[name] = {}
+        for fill, plan in (("one fill", real), ("two fills", twice)):
+            va.split_plan = pa.split_plan = plan
+            try:
+                n_split = plan(getattr(lib, f"{prefix}_smem_bytes"),
+                               getattr(lib, f"{prefix}_flash_smem_bytes"),
+                               per_sm, sms, True, B, W, Hq, kw["Hkv"], hd,
+                               S, page=ps)[2]
+                ms = device_ms(torch, calls[name][0], calls[name][1],
+                               SYMBOLS[name])
+            finally:
+                va.split_plan = pa.split_plan = real
+            out[name][fill] = (n_split, ms)
+        log(f"waves {name} verify W=8 ({card}; {per_sm(hd)} blocks per SM "
+            f"x {sms} SMs by the occupancy query): "
+            + "; ".join(f"{fill}: {n} splits, "
+                        f"{n * B * kw['Hkv']} blocks, device {ms:.4f} ms"
+                        for fill, (n, ms) in out[name].items()))
+    del dense, paged
+    return out
+
+
 def kernel_entry(name, launches, max_err, row, card, **extra):
     """One entry of the ``{"kernels": [...]}`` line: ``ms`` is the kernel's
     device time (profiler), ``kernel_ms`` the time of a call (CUDA events
@@ -1302,10 +1614,11 @@ def main():
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build()
+    sass = phase_build()
     max_err = phase_kernel_check(torch, np)
     paged_err = phase_paged_kernel_check(torch, np)
     tree_err = phase_sparse_kernel_check(torch, np)
+    edge_err = phase_split_edge_check(torch, np)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
     launches, served, loaded = phase_serve(torch, np)
     replays = phase_replay(torch, np, loaded, launches)
@@ -1316,13 +1629,17 @@ def main():
     timing = phase_timing(torch, np, card)
     paged = phase_paged_timing(torch, np, card)
     tree = phase_tree_timing(torch, np, card)
+    waves = phase_waves(torch, np, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
     t, d = timing["verify W=8"], timing["decode W=1"]
     b2, b2d = paged["B2 bfloat16 pool W=8"], paged["B2 bfloat16 pool W=1"]
     i8, i8d = paged["B2 int8 pool W=8"], paged["B2 int8 pool W=1"]
     entries = [
         kernel_entry("verify_attention", launches,
-                     max(max_err, tree_err["verify_attention"]), t, card,
+                     max(max_err, tree_err["verify_attention"],
+                         edge_err["verify_attention"]), t, card,
+                     sass={k: v for k, v in sass.items()
+                           if k.startswith("verify")},
                      chain_ms=tree["B1 chain W=256"]["kernel_ms"],
                      chain_device_ms=tree["B1 chain W=256"]["device_ms"],
                      chain_bound_ms=tree["B1 chain W=256"]["bound_ms"],
@@ -1330,10 +1647,14 @@ def main():
                      decode_device_ms=d["device_ms"],
                      decode_plain_ms=d["plain_ms"],
                      decode_library_ms=d["library_ms"],
-                     decode_bound_ms=d["bound_ms"]),
+                     decode_bound_ms=d["bound_ms"],
+                     waves=waves["verify_attention"]),
         kernel_entry("paged_tree_attention", launches,
                      max(paged_err["paged_tree_attention"],
-                         tree_err["paged_tree_attention"]), b2, card,
+                         tree_err["paged_tree_attention"],
+                         edge_err["paged_tree_attention"]), b2, card,
+                     sass={k: v for k, v in sass.items()
+                           if k.startswith("paged")},
                      chain_ms=tree["B2 chain W=256"]["kernel_ms"],
                      chain_device_ms=tree["B2 chain W=256"]["device_ms"],
                      chain_bound_ms=tree["B2 chain W=256"]["bound_ms"],
@@ -1348,7 +1669,8 @@ def main():
                      int8_decode_ms=i8d["kernel_ms"],
                      int8_decode_device_ms=i8d["device_ms"],
                      int8_decode_plain_ms=i8d["plain_ms"],
-                     int8_decode_bound_ms=i8d["bound_ms"]),
+                     int8_decode_bound_ms=i8d["bound_ms"],
+                     waves=waves["paged_tree_attention"]),
         kernel_entry("paged_cache_attention", launches,
                      paged_err["paged_cache_attention"],
                      paged["B3 int8 pool W=8"], card),

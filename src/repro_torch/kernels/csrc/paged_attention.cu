@@ -9,39 +9,54 @@
 //     computes paged_cache_attention_plain, the (o, m, l) partials that the
 //     caller merges with the tree half (tree_partial.cu) by Eq. 1.
 //
-// The page walk.  The TPU kernel gets the block table by scalar prefetch
-// and lets a BlockSpec index map DMA page table[b, i] at grid step i.
-// Here there is no prefetch: one thread block per (row b, kv head h, tile
-// of query rows) reads its own table.  It walks the logical slots
-// j = 0 .. maxp*ps - 1 in tiles of `tile` keys; slot j lives at pool slot
+// The fused walk (TREE = true, B2) is the split design of
+// verify_attention.cu over the pool: a grid of (B*Hkv, row tiles, parts)
+// blocks, each walking a contiguous range of whole pages, the W tree
+// nodes, or both, into an fp32 (o, m, l) partial, then flash_common.cuh's
+// merge_kernel (a second launch from the same entry point) folds them by
+// Eq. 1.  The TPU kernel gets the block table by scalar prefetch and lets
+// a BlockSpec index map DMA page table[b, i] at grid step i; here a
+// tile's table entries and key positions are copied (cp.async) into
+// shared memory a few tiles ahead, each slot's pool address resolved from
+// them, and then its K/V copies issued: slot j lives at pool slot
 // table[b, j/ps]*ps + j%ps of the (P, ps, Hkv, hd) pool, so consecutive
 // slots of one head are Hkv*hd elements apart and a tile of 64 keys spans
-// several pages when ps is 4, 8 or 16.  Before each tile the block stages, per slot, its key
-// position, its pool slot and its page's (K, V) scales; then it loads K/V
-// with 16-byte vectors (16 int8, 8 bf16 or 4 fp32 values), dequantizes in
-// registers (fp32 code * scale[page, h]: the scale may change inside a
-// tile) and stores fp32 tiles in shared memory.  Everything accumulates in
-// fp32 on the CUDA cores (no TF32).
+// several pages.
+//   * bf16 queries over a bf16 or int8 pool (the main path): tensor-core
+//     products from a cp.async three-stage ring (flash_common.cuh).  An
+//     int8 pool is staged as codes and dequantized on the way to the
+//     fragments (code x the fp32 scale[page, h], rounded to bf16: the
+//     scale may change inside a tile).
+//   * fp32 queries, or a float pool with scales, or head_dim above 128:
+//     CUDA-core fp32 products (attention_common.cuh's attend_tile, no
+//     TF32) in the same split grid, K/V widened to fp32 in shared memory.
+// The cache-only walk (TREE = false, B3) keeps its earlier design: one
+// block per (row b, kv head h, row tile) walks all slots with synchronous
+// 16-byte loads and CUDA-core products, writing its partial straight into
+// the merge layout.
 //
 // Unreserved pages and empty slots.  The reference reads the trash page
 // for a -1 table entry; every slot of such a page carries key_pos == -1, so
-// the mask rejects it.  This kernel instead SKIPS every slot whose table
-// entry is -1 or whose key_pos is negative: it loads nothing there and
-// marks the slot invalid.  Given that invariant the result is exact, and
-// the walk moves only the bytes of filled slots.  A float pool passes no
-// scales (null pointers): its multiply is by 1.0, which is exact.
+// the mask rejects it.  These kernels instead SKIP every slot whose table
+// entry is -1 or whose key_pos is negative: they load nothing there (the
+// async copy zero-fills) and mark the slot invalid.  Given that invariant
+// the result is exact, and the walk moves only the bytes of filled slots.
+// A float pool passes no scales (null pointers): its multiply is by 1.0,
+// which is exact.
 //
 // Bound on an H100.  Bytes bound the work: the filled slots' K and V at
 // the pool's element size (int8 halves bf16's bytes), plus q, the tree KVs
 // and the output; the G*W*(S+W)*hd*4 flops are far below the tensor-core
-// ridge.  Like verify_attention.cu, the design reads every pool byte once
-// per row tile (the rows of a tile share each key tile; at the main path
-// all G*W rows are one tile) and keeps the rest on chip,
-// but it does not split over S: with B*Hkv blocks (128 at the main path)
-// and synchronous loads it is latency-bound well above the byte bound.  A
-// split-KV grid merged by Eq. 1, cp.async/TMA double buffering and wgmma
-// are later work.
+// ridge (bf16: ~38 MB, ~11 us at 3.35 TB/s; int8 ~6 us).  The split grid
+// fills the card's resident block slots once (256 blocks at the main
+// path's B*Hkv = 128), and the async ring keeps two tiles in flight per
+// block while one computes.
+// B3 still walks with 128 blocks and synchronous loads, so it stays
+// latency-bound well above its byte bound (the next redesign).
 #include "attention_common.cuh"
+#include "flash_common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -62,10 +77,10 @@ struct Args {
   const int* lo;        // (B, W)
   const uint8_t* mask;  // (W, W) bool (fused only)
   TQ* out;              // (B, W, Hq, hd) normalized (fused)
-  float* o;             // (B, W, Hq, hd) unnormalized (cache-only)
-  float* m;             // (B, Hq, W) (cache-only)
-  float* l;             // (B, Hq, W) (cache-only)
-  int B, W, Hq, Hkv, hd, ps, maxp, tile, rows;
+  float* o;             // (B, W, Hq, hd) unnormalized (cache-only); the
+  float* m;             // (B, Hq, W)     fused walk's workspace, with a
+  float* l;             // (B, Hq, W)     leading parts axis
+  int B, W, Hq, Hkv, hd, ps, maxp, tile, rows, nsplit, split_len, parts;
   float scale;
 };
 
@@ -93,13 +108,18 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int VP = Vec<TP>::N;
   const int nvec = hd / VP, kstride = hd + 1;
-  for (int j0 = 0; j0 < S; j0 += TS) {
+  // the fused walk's block z >= 1 takes slot range z - 1, z == 0
+  // the tree; the cache-only walk takes every slot
+  const int z = blockIdx.z;
+  const int jb = !TREE ? 0 : z > 0 ? (z - 1) * a.split_len : S;
+  const int je = !TREE ? S : min(S, jb + a.split_len);
+  for (int j0 = jb; j0 < je; j0 += TS) {
     // ---- per-slot metadata: key position, pool slot, page scales
     for (int t = tid; t < TS; t += kThreads) {
       const int j = j0 + t;
       int kp = -1, phys = -1;
       float ksc = 1.f, vsc = 1.f;
-      if (j < S) {
+      if (j < je) {
         const int page = a.table[b * a.maxp + j / ps];
         kp = a.key_pos[(size_t)b * S + j];
         if (page >= 0 && kp >= 0) {
@@ -155,11 +175,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if constexpr (TREE) {
-    attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, hd, TS, a.scale);
-    store_normalized(s, a.out, b, h, W, a.Hq, G, hd);
+    if (z == 0)
+      attend_tree(s, a.kn, a.vn, b, h, W, a.Hkv, hd, TS, a.scale);
+    const size_t n_o = (size_t)a.B * W * a.Hq * hd;
+    const size_t n_m = (size_t)a.B * a.Hq * W;
+    store_partials(s, a.o + z * n_o, a.m + z * n_m, a.l + z * n_m, b, h, W,
+                   a.Hq, G, hd);
   } else {
     store_partials(s, a.o, a.m, a.l, b, h, W, a.Hq, G, hd);
   }
+}
+
+// The fused walk on the tensor cores: bf16 q over a bf16 or int8 pool.
+template <typename TP>
+__global__ void __launch_bounds__(flash::kThreads)
+    paged_flash_kernel(Args<__nv_bfloat16, TP> a) {
+  extern __shared__ __align__(16) char fsmem[];
+  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+  const flash::PagedSlots<TP> cache{a.pk,    a.pv,      a.sk, a.sv,
+                                    a.table, a.key_pos, b,    h,
+                                    a.ps,    a.maxp,    a.Hkv, a.hd};
+  const flash::TreeSlots tree{a.kn, a.vn, a.mask, b, h, a.W, a.Hkv, a.hd};
+  flash::split_block(fsmem, cache, tree, a.q, a.q_pos, a.lo, a.o, a.m, a.l,
+                     a.B, a.Hq, a.maxp * a.ps, a.nsplit, a.split_len,
+                     a.parts, a.scale);
 }
 
 struct Ptrs {
@@ -170,7 +209,8 @@ struct Ptrs {
 
 template <typename TQ, typename TP, bool TREE>
 int run(const Ptrs& p, int B, int W, int Hq, int Hkv, int hd, int ps,
-        int maxp, int tile, int rows, float scale, cudaStream_t stream) {
+        int maxp, int tile, int rows, int nsplit, int split_len, int parts,
+        float scale, cudaStream_t stream) {
   Args<TQ, TP> a;
   a.q = static_cast<const TQ*>(p.q);
   a.pk = static_cast<const TP*>(p.pk);
@@ -197,47 +237,82 @@ int run(const Ptrs& p, int B, int W, int Hq, int Hkv, int hd, int ps,
   a.maxp = maxp;
   a.tile = tile;
   a.rows = rows;
+  a.nsplit = TREE ? nsplit : 0;
+  a.split_len = split_len;
+  a.parts = parts;
   a.scale = scale;
-  const size_t smem = smem_bytes(rows, W, hd, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<TQ, TP, TREE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * Hkv, (Hq / Hkv * W + rows - 1) / rows);
-  paged_attention_kernel<TQ, TP, TREE><<<grid, kThreads, smem, stream>>>(a);
+  const int GW = Hq / Hkv * W;
+  cudaError_t err;
+  // kernels/launch.py::flash_route states the same rule
+  constexpr bool kFlash = TREE && std::is_same<TQ, __nv_bfloat16>::value &&
+                          !std::is_same<TP, float>::value;
+  // (a float pool with scales is dequantized in fp32 by the CUDA cores)
+  if (kFlash && hd <= flash::kHdMax &&
+      (std::is_same<TP, int8_t>::value || p.sk == nullptr)) {
+    if constexpr (kFlash) {
+      if (tile != flash::kTile || rows != flash::kRows ||
+          parts != nsplit + (W > flash::kTile))
+        return (int)cudaErrorInvalidValue;
+      const size_t smem = flash::layout(hd).total;
+      err = cudaFuncSetAttribute(paged_flash_kernel<TP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid(B * Hkv, (GW + flash::kRows - 1) / flash::kRows,
+                      parts);
+      paged_flash_kernel<TP><<<grid, flash::kThreads, smem, stream>>>(a);
+    }
+  } else {
+    if (TREE && parts != nsplit + 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(rows, W, hd, tile);
+    err = cudaFuncSetAttribute(paged_attention_kernel<TQ, TP, TREE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * Hkv, (GW + rows - 1) / rows, TREE ? nsplit + 1 : 1);
+    paged_attention_kernel<TQ, TP, TREE><<<grid, kThreads, smem, stream>>>(a);
+  }
+  err = cudaGetLastError();
+  if (!TREE || err != cudaSuccess) return (int)err;
+  const int threads = B * W * Hq * (hd / 4);
+  flash::merge_kernel<TQ><<<(threads + 127) / 128, 128, 0, stream>>>(
+      a.o, a.m, a.l, parts, a.out, B, W, Hq, hd);
   return (int)cudaGetLastError();
 }
 
 // dtype codes: 0 = fp32, 1 = bf16, 2 = int8 (pool only)
 template <typename TQ, bool TREE>
 int by_pool(int pool_dtype, const Ptrs& p, int B, int W, int Hq, int Hkv,
-            int hd, int ps, int maxp, int tile, int rows, float scale,
-            cudaStream_t st) {
+            int hd, int ps, int maxp, int tile, int rows, int nsplit,
+            int split_len, int parts, float scale, cudaStream_t st) {
   switch (pool_dtype) {
     case 0:
       return run<TQ, float, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp, tile, rows,
-                                  scale, st);
+                                  nsplit, split_len, parts, scale, st);
     case 1:
       return run<TQ, __nv_bfloat16, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp,
-                                          tile, rows, scale, st);
+                                          tile, rows, nsplit, split_len,
+                                          parts, scale, st);
     case 2:
       return run<TQ, int8_t, TREE>(p, B, W, Hq, Hkv, hd, ps, maxp, tile,
-                                   rows, scale, st);
+                                   rows, nsplit, split_len, parts, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool TREE>
 int by_q(int q_dtype, int pool_dtype, const Ptrs& p, int B, int W, int Hq,
-         int Hkv, int hd, int ps, int maxp, int tile, int rows, float scale,
-         cudaStream_t st) {
+         int Hkv, int hd, int ps, int maxp, int tile, int rows, int nsplit,
+         int split_len, int parts, float scale, cudaStream_t st) {
   switch (q_dtype) {
     case 0:
       return by_pool<float, TREE>(pool_dtype, p, B, W, Hq, Hkv, hd, ps, maxp,
-                                  tile, rows, scale, st);
+                                  tile, rows, nsplit, split_len, parts,
+                                  scale, st);
     case 1:
       return by_pool<__nv_bfloat16, TREE>(pool_dtype, p, B, W, Hq, Hkv, hd,
-                                          ps, maxp, tile, rows, scale, st);
+                                          ps, maxp, tile, rows, nsplit,
+                                          split_len, parts, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -250,23 +325,49 @@ size_t paged_attention_smem_bytes(int rows, int W, int hd, int tile) {
   return attn::smem_bytes(rows, W, hd, tile);
 }
 
+// Shared memory of a tensor-core block (flash_common.cuh's layout).
+size_t paged_attention_flash_smem_bytes(int hd) {
+  return flash::layout(hd).total;
+}
+
+// Blocks of the tensor-core walk (bf16 pool) resident on one SM (the
+// occupancy query; kernels/launch.py::split_plan sizes the split with it).
+int paged_attention_flash_blocks_per_sm(int hd) {
+  const int smem = (int)flash::layout(hd).total;
+  int n = 0;
+  if (cudaFuncSetAttribute(paged_flash_kernel<__nv_bfloat16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, paged_flash_kernel<__nv_bfloat16>, flash::kThreads, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
 const char* paged_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Fused page walk + tree tile (paged_tree_attention): writes `out`.
+// Fused page walk + tree tile (paged_tree_attention): the split walk into
+// the workspace ws_o (parts, B, W, Hq, hd), ws_m, ws_l (parts, B, Hq, W),
+// then the merge into `out`; two launches.  `tile` and `rows` are kTile
+// and kRows on the tensor-core path; parts is n_split + 1 (n_split on the
+// tensor-core path when W <= kTile: the last split walks the tree).
 int paged_tree_attention(int q_dtype, int pool_dtype, const void* q,
                          const void* pk, const void* pv, const void* sk,
                          const void* sv, const void* kn, const void* vn,
                          const void* table, const void* key_pos,
                          const void* q_pos, const void* lo, const void* mask,
-                         void* out, int B, int W, int Hq, int Hkv, int hd,
-                         int ps, int maxp, int tile, int rows, float scale,
-                         void* stream) {
+                         void* out, void* ws_o, void* ws_m, void* ws_l, int B,
+                         int W, int Hq, int Hkv, int hd, int ps, int maxp,
+                         int tile, int rows, int nsplit, int split_len,
+                         int parts, float scale, void* stream) {
   Ptrs p{q, pk, pv, sk, sv, kn, vn, table, key_pos, q_pos, lo, mask,
-         out, nullptr, nullptr, nullptr};
+         out, ws_o, ws_m, ws_l};
   return by_q<true>(q_dtype, pool_dtype, p, B, W, Hq, Hkv, hd, ps, maxp, tile,
-                    rows, scale, static_cast<cudaStream_t>(stream));
+                    rows, nsplit, split_len, parts, scale,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Cache-only page walk (paged_cache_attention): writes the partials o, m, l.
@@ -280,7 +381,8 @@ int paged_cache_attention(int q_dtype, int pool_dtype, const void* q,
   Ptrs p{q, pk, pv, sk, sv, nullptr, nullptr, table, key_pos, q_pos, lo,
          nullptr, nullptr, o, m, l};
   return by_q<false>(q_dtype, pool_dtype, p, B, W, Hq, Hkv, hd, ps, maxp,
-                     tile, rows, scale, static_cast<cudaStream_t>(stream));
+                     tile, rows, 0, 0, 0, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

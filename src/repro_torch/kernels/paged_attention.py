@@ -5,7 +5,9 @@
 
 Both take the exact argument layout of their plain versions in
 ``plain.py``.  A CPU tensor runs the plain version; a CUDA tensor launches
-the kernel or raises, with no fallback between the two.  Each wrapper
+the kernel or raises, with no fallback between the two.  The fused walk is
+a split walk into an fp32 partials workspace, then the Eq.-1 merge (two
+kernels from one C call, counted as one launch).  Each wrapper
 counts its own kernel launches in ``.launches`` (and nothing else).
 
 The pool may be float32, bfloat16 or int8 (then with its per-page scales);
@@ -21,8 +23,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import (Counted, check_common, launch,
-                                        pick_tiles)
+from repro_torch.kernels.launch import (Counted, check_common, flash_route,
+                                        launch, pick_tiles, sm_count,
+                                        split_plan, workspace)
 from repro_torch.kernels.plain import (paged_cache_attention_plain,
                                        paged_tree_attention_plain)
 
@@ -37,7 +40,7 @@ def _bind():
     """Build (first use) and load the library, and declare every C
     signature: pointers and the stream as ``c_void_p``."""
     lib = build.load("paged_attention")
-    lib.paged_tree_attention.argtypes = ([_I, _I] + [_P] * 13 + [_I] * 9
+    lib.paged_tree_attention.argtypes = ([_I, _I] + [_P] * 16 + [_I] * 12
                                          + [ctypes.c_float, _P])
     lib.paged_cache_attention.argtypes = ([_I, _I] + [_P] * 12 + [_I] * 9
                                           + [ctypes.c_float, _P])
@@ -45,6 +48,10 @@ def _bind():
     lib.paged_cache_attention.restype = _I
     lib.paged_attention_smem_bytes.argtypes = [_I] * 4
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_attention_flash_smem_bytes.argtypes = [_I]
+    lib.paged_attention_flash_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_attention_flash_blocks_per_sm.argtypes = [_I]
+    lib.paged_attention_flash_blocks_per_sm.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -111,16 +118,20 @@ def _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos, q_pos,
     return B, W, Hq, Hkv, hd, ps, maxp
 
 
-def _launch(wrapper, q, pool_k, dims, operands):
+def _launch(wrapper, q, pool_k, dims, operands, split=None, ws=()):
+    """Launch ``wrapper``'s C entry point; ``split = (tile, rows, n_split,
+    split_len, parts)`` and the workspace pointers ``ws`` for the fused
+    split walk, else the cache-only walk's ``pick_tiles`` choice."""
     B, W, Hq, Hkv, hd, ps, maxp = dims
     lib = _bind()
-    tile, rows = pick_tiles(lib.paged_attention_smem_bytes, Hq // Hkv * W,
-                            W, hd)
+    if split is None:
+        split = pick_tiles(lib.paged_attention_smem_bytes, Hq // Hkv * W, W,
+                           hd)
     launch(wrapper, getattr(lib, wrapper.__name__),
            lib.paged_attention_error_string, q.device, _Q_CODES[q.dtype],
            _POOL_CODES[pool_k.dtype],
-           *(None if t is None else t.data_ptr() for t in operands),
-           B, W, Hq, Hkv, hd, ps, maxp, tile, rows, hd ** -0.5)
+           *(None if t is None else t.data_ptr() for t in operands), *ws,
+           B, W, Hq, Hkv, hd, ps, maxp, *split, hd ** -0.5)
 
 
 @Counted
@@ -136,10 +147,19 @@ def paged_tree_attention(q, pool_k, pool_v, scale_k, scale_v, k_new, v_new,
                          f"{q.device}")
     dims = _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos,
                   q_pos, lo, k_new, v_new, tree_mask)
+    B, W, Hq, Hkv, hd, ps, maxp = dims
+    lib = _bind()
+    flash = flash_route(q.dtype, pool_k.dtype, hd, scale_k is not None)
+    split = split_plan(lib.paged_attention_smem_bytes,
+                       lib.paged_attention_flash_smem_bytes,
+                       lib.paged_attention_flash_blocks_per_sm,
+                       sm_count(q.device), flash, B, W, Hq, Hkv, hd,
+                       maxp * ps, page=ps)
     out = torch.empty_like(q)
+    ws, ws_o, ws_m, ws_l = workspace(q, split[4])
     _launch(paged_tree_attention, q, pool_k, dims,
             (q, pool_k, pool_v, scale_k, scale_v, k_new, v_new, block_table,
-             key_pos, q_pos, lo, tree_mask, out))
+             key_pos, q_pos, lo, tree_mask, out), split, (ws_o, ws_m, ws_l))
     return out
 
 

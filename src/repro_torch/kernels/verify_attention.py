@@ -3,10 +3,12 @@ kernel ``csrc/verify_attention.cu`` (counterpart of the Pallas
 ``repro/kernels/tree_attention.py::tree_attention``).
 
 ``verify_attention`` takes ``tree_attention_plain``'s exact arguments.  A
-CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises.  There is no fallback between the two.  ``verify_attention.launches``
-counts kernel launches (and nothing else), so a run can show that its main
-path went through the kernel.
+CPU tensor runs the plain version; a CUDA tensor launches the kernel (the
+split walk into an fp32 partials workspace, then the Eq.-1 merge: two
+kernels from one C call, counted as one launch) or raises.  There is no
+fallback between the two.  ``verify_attention.launches`` counts kernel
+launches (and nothing else), so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import (Counted, check_common, launch,
-                                        pick_tiles)
+from repro_torch.kernels.launch import (Counted, check_common, flash_route,
+                                        launch, sm_count, split_plan,
+                                        workspace)
 from repro_torch.kernels.plain import tree_attention_plain
 
 _DTYPES = {torch.float32: "verify_attention_f32",
@@ -34,10 +37,14 @@ def _bind():
     lib = build.load("verify_attention")
     for fn in _DTYPES.values():
         f = getattr(lib, fn)
-        f.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
+        f.argtypes = [_P] * 13 + [_I] * 11 + [ctypes.c_float, _P]
         f.restype = _I
     lib.verify_attention_smem_bytes.argtypes = [_I] * 4
     lib.verify_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.verify_attention_flash_smem_bytes.argtypes = [_I]
+    lib.verify_attention_flash_smem_bytes.restype = ctypes.c_size_t
+    lib.verify_attention_flash_blocks_per_sm.argtypes = [_I]
+    lib.verify_attention_flash_blocks_per_sm.restype = _I
     lib.verify_attention_error_string.argtypes = [_I]
     lib.verify_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -92,12 +99,17 @@ def verify_attention(q, ck, cv, k_new, v_new, key_pos, q_pos, lo,
     B, W, Hq, Hkv, hd, S = _check(q, ck, cv, k_new, v_new, key_pos, q_pos,
                                   lo, tree_mask)
     lib = _bind()
-    tile, rows = pick_tiles(lib.verify_attention_smem_bytes, Hq // Hkv * W,
-                            W, hd)
+    tile, rows, n_split, split_len, parts = split_plan(
+        lib.verify_attention_smem_bytes,
+        lib.verify_attention_flash_smem_bytes,
+        lib.verify_attention_flash_blocks_per_sm, sm_count(q.device),
+        flash_route(q.dtype, ck.dtype, hd), B, W, Hq, Hkv, hd, S)
     out = torch.empty_like(q)
+    ws, ws_o, ws_m, ws_l = workspace(q, parts)
     launch(verify_attention, getattr(lib, _DTYPES[q.dtype]),
            lib.verify_attention_error_string, q.device,
            *(t.data_ptr() for t in (q, ck, cv, k_new, v_new, key_pos, q_pos,
-                                    lo, tree_mask, out)),
-           B, W, Hq, Hkv, hd, S, tile, rows, hd ** -0.5)
+                                    lo, tree_mask, out)), ws_o, ws_m, ws_l,
+           B, W, Hq, Hkv, hd, S, tile, rows, n_split, split_len, parts,
+           hd ** -0.5)
     return out

@@ -94,8 +94,8 @@ def test_paged_cuda_calls_launch_or_raise():
 def test_tree_kernels_match_plain_on_card():
     """The normalized tree kernel (B5) and the tree partial (B4) over the
     reference's sparse sweep, the Fig. 10b shape and the main path's W=8;
-    the dense verify (B1) and the page walk (B2) at a W=256 chain (two row
-    tiles).  Each call is one launch of its kernel."""
+    the dense verify (B1) and the page walk (B2) at a W=256 chain (four
+    row tiles).  Each call is one launch of its kernel."""
     _need_gpu()
     wrappers = (tp.sparse_tree_attention, tp.sparse_tree_attention_partial,
                 verify_attention, pa.paged_tree_attention)
@@ -104,3 +104,31 @@ def test_tree_kernels_match_plain_on_card():
     n = len(chip_smoke.sparse_case_list(np))
     assert [w.launches - b for w, b in zip(wrappers, before)] == [n, n, 1, 1]
     assert max(worst.values()) < 2e-2
+
+
+@pytest.mark.gpu
+def test_split_edges_match_plain_on_card():
+    """B1 and B2's split walk at its edges (chip_smoke.SPLIT_EDGE): one,
+    two, three and one split per key tile; splits wholly unreserved, past
+    the fill or cut away by a window; a row whose cache is all masked; a
+    ragged last key tile over an int8 pool; head_dim 16 to 128; bf16, int8
+    and fp32.  One launch per call."""
+    _need_gpu()
+    wrappers = (verify_attention, pa.paged_tree_attention)
+    before = [w.launches for w in wrappers]
+    worst = chip_smoke.phase_split_edge_check(torch, np)
+    n = len(chip_smoke.SPLIT_EDGE)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [n, n]
+    assert max(worst.values()) < 2e-2
+
+
+@pytest.mark.gpu
+def test_tensor_core_instances_use_mma_and_cp_async():
+    """The bf16 instances of B1 and B2 hold HMMA and LDGSTS
+    instructions."""
+    _need_gpu()
+    from repro_torch.kernels import build
+    build.build()
+    counts = chip_smoke.sass_counts(build)
+    assert len(counts) == 3
+    assert all(v["HMMA"] > 0 and v["LDGSTS"] > 0 for v in counts.values())
