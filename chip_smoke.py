@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    matmuls and convolutions to full precision (no TF32).
 2. Build every CUDA kernel of the port from the checkout's sources, one
    ``nvcc`` per source, all started together; count the tensor-core
-   products (HMMA) and async copies (LDGSTS) in the SASS of B1's and B2's
-   tensor-core instances (``cuobjdump -sass``).
+   products (HMMA) and async copies (LDGSTS) in the SASS of the six
+   tensor-core instances: B1's, B2's and B3's over a bf16 and an int8
+   pool, and B5's (``cuobjdump -sass``).
 3. Hold each kernel against its plain PyTorch version on the card, at the
    reference's tolerances (fp32 2e-5, bf16 2e-2; every output finite):
    the dense verify kernel over the reference sweep (``tests/test_kernels.py``
@@ -21,11 +22,12 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the normalized tree kernel and the tree partial over the reference's
    sparse sweep, the Fig. 10b shape and the main path's W=8; the dense
    verify and the page walk at a W=256 chain (a prefill piece, four row
-   tiles); the split-edge cases of B1 and B2 (SPLIT_EDGE: one, two, three
-   and one split per key tile; splits wholly unreserved, past the fill or
-   cut away by a window; a row whose cache is all masked; a ragged last
-   tile over an int8 pool; head_dim 16 to 128; bf16, int8 and fp32); all
-   of them at the main path's shapes.
+   tiles) and the cache-only walk there (its split carry-folded); the
+   split-edge cases of B1, B2 and B3 (SPLIT_EDGE: one, two, three and one
+   split per key tile; splits wholly unreserved, past the fill or cut away
+   by a window; a row whose cache is all masked; a ragged last tile over
+   an int8 pool; head_dim 16 to 128; bf16, int8 and fp32); all of them at
+   the main path's shapes.
 4. Serve ``vicuna-7b`` at full width with random bf16 weights through the
    port's serve entry point: ``--mode ghidorah --width 8`` and
    ``--mode sequential`` on the dense cache, then on the paged pool (page
@@ -46,12 +48,15 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    tree kernel at the Fig. 10b shape, and the dense verify and the page
    walk at the W=256 chain, with CUDA events (the cost of a call) and
    under torch.profiler (the device time of every kernel of one call: the
-   split walk and its merge for B1 and B2), beside its plain version, one
-   PyTorch library call where there is one (B3 and B4: the efficient
-   attention kernel with its log-sum-exp), and its memory/compute bound.
-   Time B1 and B2 at verify W=8 with the split that fills the card's
-   resident block slots once (the wrappers' rule) against one that fills
-   them twice.
+   split walk and its merge for B1 and B2, the walk and its carry fold for
+   B3) and on the host's clock (what enqueueing one call costs the host),
+   beside its plain version, one PyTorch library call where there is
+   one (B3 and B4: the efficient attention kernel with its log-sum-exp;
+   B2 over an int8 pool: sdpa over the dequantized view), and its
+   memory/compute bound.  Time B1 and B2 at verify W=8 with the split that
+   fills the card's resident block slots once (the wrappers' rule)
+   against one that fills them twice, and B5 at the Fig. 10b shape with
+   each of its row tiles (the picker's rule against the others).
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -415,13 +420,19 @@ def phase_build():
     return sass_counts(build)
 
 
+# the tensor-core instances phase 2 expects: B1 bf16; B2 and B3 over a
+# bf16 and an int8 pool; B5 bf16
+TENSOR_CORE_INSTANCES = 6
+
+
 def sass_counts(build):
     """Tensor-core products (HMMA) and async copies (LDGSTS) in the SASS
-    of each tensor-core (bf16) instance of B1 and B2, from ``cuobjdump
-    -sass`` of the built libraries; fails if either is missing."""
+    of each tensor-core (bf16) instance of B1, B2, B3 and B5 (every kernel
+    symbol with ``flash_kernel`` in its name), from ``cuobjdump -sass`` of
+    the built libraries; fails if either is missing."""
     tool = Path(build.nvcc()).parent / "cuobjdump"
     counts = {}
-    for name in ("verify_attention", "paged_attention"):
+    for name in build.SOURCES:
         path = build.library_path(name)
         sass = subprocess.run([str(tool), "-sass", str(path)],
                               capture_output=True, text=True, timeout=300)
@@ -438,9 +449,10 @@ def sass_counts(build):
             if not all(counts[key].values()):
                 raise SmokeError(f"{key} has no tensor-core product or no "
                                  f"async copy: {counts[key]}")
-    if len(counts) != 3:
-        raise SmokeError(f"expected 3 tensor-core instances (B1 bf16, B2 "
-                         f"bf16 and int8 pools), found {sorted(counts)}")
+    if len(counts) != TENSOR_CORE_INSTANCES:
+        raise SmokeError(f"expected {TENSOR_CORE_INSTANCES} tensor-core "
+                         f"instances (B1 bf16; B2 and B3 over bf16 and int8 "
+                         f"pools; B5 bf16), found {sorted(counts)}")
     return counts
 
 
@@ -622,9 +634,10 @@ def chain_cases(np):
     return dense, paged
 
 
-# split-edge cases of phase 3 (B1 and B2 where the split walk's edges
-# show): S slots (320: 5 key tiles, 20 pages of 16; 592: the main path's
-# 37 pages, whose last key tile holds 16 slots), rows filled to S, 70 and
+# split-edge cases of phase 3 (B1, B2 and B3 where the split walk's edges
+# show; B3's walk has no tree part and splits alike): S slots (320: 5 key
+# tiles, 20 pages of 16; 592: the main path's 37 pages, whose last key
+# tile holds 16 slots), rows filled to S, 70 and
 # 200 slots; row 0 under a 100-position window (lo cuts its first splits
 # away), row 2 with lo = q_pos (its whole cache masked); in the paged
 # layout row 1's pages 4-7 unreserved (-1: a whole split) and pages past
@@ -727,7 +740,8 @@ def split_edge_inputs(torch, np, Hkv, G, W, hd, q_dtype, pool_dtype, S,
 
 
 def phase_split_edge_check(torch, np):
-    """B1 (dense, the pool's logical view in q's dtype) and B2 (paged)
+    """B1 (dense, the pool's logical view in q's dtype), B2 (paged) and B3
+    (the cache-only page walk, split without a tree part and carry-folded)
     against their plain versions over SPLIT_EDGE: one split per tile,
     three, two and one; splits wholly unreserved, past the fill, cut away
     by lo; a row whose cache is all masked; a last key tile of 16 slots
@@ -738,15 +752,20 @@ def phase_split_edge_check(torch, np):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain
     from repro_torch.kernels.verify_attention import verify_attention
-    worst = dict.fromkeys(("verify_attention", "paged_tree_attention"), 0.0)
+    worst = dict.fromkeys(("verify_attention", "paged_tree_attention",
+                           "paged_cache_attention"), 0.0)
     for i, (label, case) in enumerate(SPLIT_EDGE.items()):
         dense, paged = split_edge_inputs(torch, np, *case, seed=800 + i)
         tol = TOL[str(dense[0].dtype)]
+        cache_args = paged_args(paged, tree=False)
         runs = {"verify_attention": (verify_attention(*dense),
                                      plain.tree_attention_plain(*dense)),
                 "paged_tree_attention": (
                     pa.paged_tree_attention(*paged_args(paged)),
-                    plain.paged_tree_attention_plain(*paged_args(paged)))}
+                    plain.paged_tree_attention_plain(*paged_args(paged))),
+                "paged_cache_attention": (
+                    pa.paged_cache_attention(*cache_args),
+                    plain.paged_cache_attention_plain(*cache_args))}
         torch.cuda.synchronize()
         errs = []
         for name, (got, want) in runs.items():
@@ -761,15 +780,17 @@ def phase_split_edge_check(torch, np):
 def phase_sparse_kernel_check(torch, np):
     """The normalized tree kernel (B5) and the tree partial (B4) against
     their plain versions over the reference's sparse sweep, the Fig. 10b
-    shape and the main path's W=8; the dense verify (B1) and the fused page
-    walk (B2) at a W=256 chain, where G*W rows outgrow one block."""
+    shape and the main path's W=8; the dense verify (B1), the fused page
+    walk (B2) and the cache-only walk (B3, four row tiles in each of its
+    two splits) at a W=256 chain, where G*W rows outgrow one block."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain
     from repro_torch.kernels import tree_partial as tp
     from repro_torch.kernels.verify_attention import verify_attention
     worst = dict.fromkeys(("sparse_tree_attention",
                            "sparse_tree_attention_partial",
-                           "verify_attention", "paged_tree_attention"), 0.0)
+                           "verify_attention", "paged_tree_attention",
+                           "paged_cache_attention"), 0.0)
     for i, (label, kw) in enumerate(sparse_case_list(np)):
         args = sparse_inputs(torch, np, seed=300 + i, **kw)
         tol = TOL[str(args[0].dtype)]
@@ -800,11 +821,17 @@ def phase_sparse_kernel_check(torch, np):
         pa.paged_tree_attention(*paged_args(a)),
         plain.paged_tree_attention_plain(*paged_args(a)),
         TOL["torch.bfloat16"])
+    worst["paged_cache_attention"] = _hold(
+        torch, "paged_cache_attention", "W=256 chain",
+        pa.paged_cache_attention(*paged_args(a, tree=False)),
+        plain.paged_cache_attention_plain(*paged_args(a, tree=False)),
+        TOL["torch.bfloat16"])
     torch.cuda.synchronize()
     log(f"W=256 chain (B=1, Hq=Hkv={dense['Hq']}, hd={dense['hd']}, bf16, "
         f"256 cached positions): max abs err verify_attention "
         f"{worst['verify_attention']:.2e}, paged_tree_attention "
-        f"{worst['paged_tree_attention']:.2e}")
+        f"{worst['paged_tree_attention']:.2e}, paged_cache_attention "
+        f"{worst['paged_cache_attention']:.2e}")
     return worst
 
 
@@ -1129,14 +1156,35 @@ def timed(torch, fn, sets, iters=50, warm=5):
     return e0.elapsed_time(e1) / iters
 
 
+def host_ms(torch, fn, sets, iters=50, warm=5):
+    """Mean host time of one call (ms): the host's clock around ``iters``
+    calls with no synchronize among them, after ``warm`` calls (the cost
+    of enqueueing a call; the card's queue holds them all)."""
+    for i in range(warm):
+        fn(sets[i % len(sets)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(sets[i % len(sets)])
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / iters
+
+
 # device-side symbols of the kernels one call launches (their time in a
-# torch.profiler trace): at the timed shapes (bf16 queries) the split
-# walks of B1 and B2 launch their tensor-core walk and the Eq.-1 merge
+# torch.profiler trace; matched as substrings, so no name holds another):
+# at the timed shapes (bf16 queries) the split walks of B1 and B2 launch
+# their tensor-core walk and the Eq.-1 merge, B3 at the main path's W=8
+# (two splits) its tensor-core walk and the carry fold; B5 one kernel of
+# its route, by q's dtype
 SYMBOLS = {"verify_attention": ("verify_flash_kernel", "merge_kernel"),
            "paged_tree_attention": ("paged_flash_kernel", "merge_kernel"),
-           "paged_cache_attention": ("paged_attention_kernel",),
+           "paged_cache_attention": ("cache_flash_kernel",
+                                     "carry_fold_kernel"),
            "sparse_tree_attention_partial": ("tree_partial_kernel",),
-           "sparse_tree_attention": ("tree_partial_kernel",)}
+           "sparse_tree_attention": {
+               "torch.float32": ("tree_norm_f32_kernel",),
+               "torch.bfloat16": ("tree_norm_flash_kernel",)}}
 
 
 def device_ms(torch, fn, sets, symbols, iters=20):
@@ -1200,6 +1248,7 @@ def phase_timing(torch, np, card):
         lib_err = float((lib.transpose(1, 2).float() - ref.float()).abs()
                         .max())
         kernel_ms = timed(torch, lambda a: verify_attention(*a), sets)
+        call_host = host_ms(torch, lambda a: verify_attention(*a), sets)
         dev_ms = device_ms(torch, lambda a: verify_attention(*a), sets,
                            SYMBOLS["verify_attention"])
         plain_ms = timed(torch, lambda a: tree_attention_plain(*a), sets)
@@ -1209,11 +1258,12 @@ def phase_timing(torch, np, card):
         ops = needed_ops(sets[0])
         bound_ms, bound_by = bound(nbytes, ops, sets[0][0].dtype)
         rows[label] = dict(kernel_ms=kernel_ms, device_ms=dev_ms,
-                           plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           bytes=nbytes, ops=ops)
+                           host_ms=call_host, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=nbytes, ops=ops)
         log(f"timing {label} ({card}): kernel_ms {kernel_ms:.4f} (device "
-            f"{dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+            f"{dev_ms:.4f}, host {call_host:.4f}) plain_ms {plain_ms:.4f} "
+            f"library_ms "
             f"{library_ms:.4f} (sdpa, max abs "
             f"diff to plain {lib_err:.2e}) bound_ms {bound_ms:.4f} "
             f"({bound_by}: {nbytes / 1e6:.2f} MB over "
@@ -1228,14 +1278,15 @@ def phase_paged_timing(torch, np, card):
     bf16 and an int8 pool at verify W=8 and decode W=1, the cache-only walk
     (int8) and the tree partial at W=8.  Each cycles 4 input sets with
     their own shuffled tables (> the 50 MB L2 together).  The library call
-    of the fused walk over a float pool is ``scaled_dot_product_attention``
-    over the view already gathered through the table (the gather left out
-    of its time); the int8 walk, the cache-only walk and the tree partial
-    have no single PyTorch call."""
+    of the fused walk is ``scaled_dot_product_attention`` over the view
+    already gathered through the table (an int8 pool's view dequantized to
+    bf16; the gather and the dequant left out of its time); the cache-only
+    walk's and the tree partial's is the efficient-attention kernel with
+    its log-sum-exp (``lse_library``)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain
     from repro_torch.kernels import tree_partial as tp
-    from repro_torch.runtime.cache import gather_pages
+    from repro_torch.runtime.cache import gather_pages_dequant
     import torch.nn.functional as F
 
     shapes = {}
@@ -1247,18 +1298,20 @@ def phase_paged_timing(torch, np, card):
     def record(key, name, kernel_fn, plain_fn, sets, outs, cache, tree,
                library_ms=None, note=""):
         kernel_ms = timed(torch, kernel_fn, sets)
+        call_host = host_ms(torch, kernel_fn, sets)
         dev_ms = device_ms(torch, kernel_fn, sets, SYMBOLS[name])
         plain_ms = timed(torch, plain_fn, sets)
         nbytes, slots = paged_bytes(sets[0], outs, cache=cache, tree=tree)
         ops = paged_ops(sets[0], slots, cache=cache, tree=tree)
         bound_ms, bound_by = bound(nbytes, ops, sets[0]["q"].dtype)
         rows[key] = dict(kernel_ms=kernel_ms, device_ms=dev_ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                         ops=ops)
+                         host_ms=call_host, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, ops=ops)
         lib = "none" if library_ms is None else f"{library_ms:.4f}"
         log(f"timing {key} ({card}): kernel_ms {kernel_ms:.4f} (device "
-            f"{dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {lib}{note} "
+            f"{dev_ms:.4f}, host {call_host:.4f}) plain_ms {plain_ms:.4f} "
+            f"library_ms {lib}{note} "
             f"bound_ms "
             f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB over "
             f"{slots} valid cache slots, {ops / 1e9:.3f} GFLOP); "
@@ -1270,23 +1323,27 @@ def phase_paged_timing(torch, np, card):
             sets = [paged_inputs(torch, np, **dict(kw, seed=200 + r))
                     for r, kw in enumerate(shapes[label])]
             ref = plain.paged_tree_attention_plain(*paged_args(sets[0]))
-            library_ms, note = None, ""
-            if pool == "bfloat16":
-                lib_sets = [sdpa_inputs(torch, (
-                    a["q"], gather_pages(a["pool_k"], a["block_table"]),
-                    gather_pages(a["pool_v"], a["block_table"]),
-                    a["k_new"], a["v_new"], a["key_pos"], a["q_pos"],
-                    a["lo"], a["tree_mask"])) for a in sets]
-                lib = F.scaled_dot_product_attention(
-                    *lib_sets[0][:3], attn_mask=lib_sets[0][3])
-                lib_err = float((lib.transpose(1, 2).float()
-                                 - ref.float()).abs().max())
-                library_ms = timed(
-                    torch, lambda a: F.scaled_dot_product_attention(
-                        a[0], a[1], a[2], attn_mask=a[3]), lib_sets)
-                note = (f" (sdpa over the gathered view, gather not timed; "
-                        f"max abs diff to plain {lib_err:.2e})")
-                del lib_sets
+
+            def view(a, which):
+                return gather_pages_dequant(
+                    a[f"pool_{which}"], a[f"scale_{which}"],
+                    a["block_table"]).to(torch.bfloat16)
+            lib_sets = [sdpa_inputs(torch, (
+                a["q"], view(a, "k"), view(a, "v"), a["k_new"], a["v_new"],
+                a["key_pos"], a["q_pos"], a["lo"], a["tree_mask"]))
+                for a in sets]
+            lib = F.scaled_dot_product_attention(
+                *lib_sets[0][:3], attn_mask=lib_sets[0][3])
+            lib_err = float((lib.transpose(1, 2).float()
+                             - ref.float()).abs().max())
+            library_ms = timed(
+                torch, lambda a: F.scaled_dot_product_attention(
+                    a[0], a[1], a[2], attn_mask=a[3]), lib_sets)
+            what = "the gathered view" if pool == "bfloat16" else \
+                "the gathered view dequantized to bf16"
+            note = (f" (sdpa over {what}, not timed; max abs diff to plain "
+                    f"{lib_err:.2e})")
+            del lib_sets
             record(f"B2 {pool} pool W={W}", "paged_tree_attention",
                    lambda a: pa.paged_tree_attention(*paged_args(a)),
                    lambda a: plain.paged_tree_attention_plain(
@@ -1384,8 +1441,8 @@ def lse_library(torch, lib_sets, parts):
                      - (m + torch.log(l))).abs().max())
     return timed(torch, call, lib_sets), (
         f" (aten._scaled_dot_product_efficient_attention with the "
-        f"log-sum-exp; max abs diff to plain: o {err:.2e}, lse "
-        f"{lse_err:.2e})")
+        f"log-sum-exp, host {host_ms(torch, call, lib_sets):.4f}; max abs "
+        f"diff to plain: o {err:.2e}, lse {lse_err:.2e})")
 
 
 def phase_sparse_study(torch, np, launches):
@@ -1435,18 +1492,20 @@ def time_row(torch, card, key, symbol, kernel_fn, plain_fn, sets, nbytes,
     library call ``(fn, its input sets)``; with the bound of ``nbytes``
     and ``ops``."""
     kernel_ms = timed(torch, kernel_fn, sets)
+    call_host = host_ms(torch, kernel_fn, sets)
     dev_ms = device_ms(torch, kernel_fn, sets, symbol)
     plain_ms = timed(torch, plain_fn, sets)
     library_ms = None if library is None else timed(torch, *library)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     lib = "none" if library_ms is None else f"{library_ms:.4f}"
     log(f"timing {key} ({card}): kernel_ms {kernel_ms:.4f} (device "
-        f"{dev_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {lib}{note} "
-        f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.3f} MB, "
-        f"{ops / 1e9:.4f} GFLOP); {kernel_ms / bound_ms:.1f}x the bound")
-    return dict(kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, ops=ops)
+        f"{dev_ms:.4f}, host {call_host:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms {lib}{note} bound_ms {bound_ms:.4f} ({bound_by}: "
+        f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP); "
+        f"{kernel_ms / bound_ms:.1f}x the bound")
+    return dict(kernel_ms=kernel_ms, device_ms=dev_ms, host_ms=call_host,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, ops=ops)
 
 
 def sdpa_tree(torch, args):
@@ -1488,7 +1547,8 @@ def phase_tree_timing(torch, np, card):
         nnz = int(sets[0][3].sum())
         ops = 4 * q.shape[0] * q.shape[2] * q.shape[3] * nnz
         rows[f"B5 {label}"] = time_row(
-            torch, card, f"B5 {label}", SYMBOLS["sparse_tree_attention"],
+            torch, card, f"B5 {label}",
+            SYMBOLS["sparse_tree_attention"][str(q.dtype)],
             lambda a: tp.sparse_tree_attention(*a),
             lambda a: plain.sparse_tree_attention_plain(*a), sets, nbytes,
             ops, q.dtype,
@@ -1589,14 +1649,49 @@ def phase_waves(torch, np, card):
     return out
 
 
+def phase_tree_rows(torch, np, card):
+    """B5's row-tile picker, timed: the device time of one call at the
+    Fig. 10b shape (fp32 and bf16) with each row tile its route offers,
+    the picker's choice marked, over the same 4 input sets each.  Returns
+    {dtype: {"rows": the picker's choice, "ms": {rows: (blocks, ms)}}}."""
+    from repro_torch.kernels import tree_partial as tp
+    real = tp.norm_rows
+    out = {}
+    fig = {k: v for k, v in FIG10B.items() if k != "ctx"}
+    G = fig["Hq"] // fig["Hkv"]
+    for dt in ("float32", "bfloat16"):
+        sets = [sparse_inputs(torch, np, dtype=dt, mask=fig10b_tree(np)[0],
+                              seed=500 + r, **fig) for r in range(4)]
+        route = tp.norm_route(sets[0][0].dtype, fig["W"], fig["hd"])
+        chosen = real(route, fig["B"], fig["Hkv"], G * fig["W"])
+        times = {}
+        for rows in tp.NORM_ROWS[route]:
+            tp.norm_rows = lambda *a, rows=rows: rows
+            try:
+                ms = device_ms(torch, lambda a: tp.sparse_tree_attention(*a),
+                               sets, SYMBOLS["sparse_tree_attention"][
+                                   str(sets[0][0].dtype)])
+            finally:
+                tp.norm_rows = real
+            blocks = fig["B"] * fig["Hkv"] * -(-G * fig["W"] // rows)
+            times[rows] = (blocks, ms)
+        out[dt] = {"rows": chosen, "ms": times}
+        log(f"rows B5 fig10b {dt} ({card}): the picker takes {chosen} rows; "
+            + "; ".join(f"{r} rows: {n} blocks, device {ms:.4f} ms"
+                        for r, (n, ms) in times.items()))
+        del sets
+    return out
+
+
 def kernel_entry(name, launches, max_err, row, card, **extra):
     """One entry of the ``{"kernels": [...]}`` line: ``ms`` is the kernel's
     device time (profiler), ``kernel_ms`` the time of a call (CUDA events
-    around a loop of calls, the host's share included)."""
+    around a loop of calls, the host's share included), ``host_ms`` the
+    host's own time per call (``host_ms``)."""
     return dict(KERNELS[name], name=name, launches=launches[name],
                 max_abs_err=max_err, max_err=max_err, ms=row["device_ms"],
                 device_ms=row["device_ms"], kernel_ms=row["kernel_ms"],
-                plain_ms=row["plain_ms"],
+                host_ms=row["host_ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], card=card, **extra)
 
@@ -1630,6 +1725,7 @@ def main():
     paged = phase_paged_timing(torch, np, card)
     tree = phase_tree_timing(torch, np, card)
     waves = phase_waves(torch, np, card)
+    tree_rows = phase_tree_rows(torch, np, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
     t, d = timing["verify W=8"], timing["decode W=1"]
     b2, b2d = paged["B2 bfloat16 pool W=8"], paged["B2 bfloat16 pool W=1"]
@@ -1654,7 +1750,7 @@ def main():
                          tree_err["paged_tree_attention"],
                          edge_err["paged_tree_attention"]), b2, card,
                      sass={k: v for k, v in sass.items()
-                           if k.startswith("paged")},
+                           if "paged_flash" in k},
                      chain_ms=tree["B2 chain W=256"]["kernel_ms"],
                      chain_device_ms=tree["B2 chain W=256"]["device_ms"],
                      chain_bound_ms=tree["B2 chain W=256"]["bound_ms"],
@@ -1665,15 +1761,21 @@ def main():
                      decode_bound_ms=b2d["bound_ms"],
                      int8_ms=i8["kernel_ms"], int8_device_ms=i8["device_ms"],
                      int8_plain_ms=i8["plain_ms"],
+                     int8_library_ms=i8["library_ms"],
                      int8_bound_ms=i8["bound_ms"],
                      int8_decode_ms=i8d["kernel_ms"],
                      int8_decode_device_ms=i8d["device_ms"],
                      int8_decode_plain_ms=i8d["plain_ms"],
+                     int8_decode_library_ms=i8d["library_ms"],
                      int8_decode_bound_ms=i8d["bound_ms"],
                      waves=waves["paged_tree_attention"]),
         kernel_entry("paged_cache_attention", launches,
-                     paged_err["paged_cache_attention"],
-                     paged["B3 int8 pool W=8"], card),
+                     max(paged_err["paged_cache_attention"],
+                         tree_err["paged_cache_attention"],
+                         edge_err["paged_cache_attention"]),
+                     paged["B3 int8 pool W=8"], card,
+                     sass={k: v for k, v in sass.items()
+                           if "cache_flash" in k}),
         kernel_entry("sparse_tree_attention_partial", launches,
                      max(paged_err["sparse_tree_attention_partial"],
                          tree_err["sparse_tree_attention_partial"]),
@@ -1691,6 +1793,9 @@ def main():
                      w8_plain_ms=tree["B5 main W=8"]["plain_ms"],
                      w8_library_ms=tree["B5 main W=8"]["library_ms"],
                      w8_bound_ms=tree["B5 main W=8"]["bound_ms"],
+                     rows=tree_rows,
+                     sass={k: v for k, v in sass.items()
+                           if k.startswith("tree")},
                      fig10b=study),
     ]
     steps = {label: r["stats"]["device_steps"] for label, r in served.items()}

@@ -1,26 +1,29 @@
 // Device pieces of the split tree-verify walk on the tensor cores, shared by
-// the dense verify (verify_attention.cu, B1) and the fused paged walk
-// (paged_attention.cu, B2) under bf16 queries: cp.async staging into a
+// the dense verify (verify_attention.cu, B1), the fused and the cache-only
+// paged walks (paged_attention.cu, B2 and B3) and the normalized tree
+// kernel (tree_partial.cu, B5) under bf16 queries: cp.async staging into a
 // three-stage shared-memory ring, ldmatrix fragments, mma.sync products
 // with fp32 accumulation, the masked online softmax in registers, the
-// partials' store and the Eq.-1 merge kernel.
+// partials' store, the Eq.-1 merge kernel and the carry fold.
 //
 // The grid of a call is (B*Hkv, row tiles, parts).  Block (x, y, z) takes
-// kv head h of batch row b (x = b*Hkv + h), the kRows query rows
-// [y*kRows, ...) of its G*W (row r = g*W + w reads query head h*G + g, the
-// reference's grouping), and one contiguous range of cache slots, the W
-// fresh tree KVs under the ancestor mask, or both (split_block: the tree
-// is a part of its own when it spans more than one tile, else the last
-// split's block walks it after its slots).  It writes the unnormalized
-// fp32 partial (o, m, l) of its part into a workspace in the
-// cm.merge_partials layout, part-major; merge_kernel then folds the parts
-// into o / max(l, 1e-30) in q's dtype.  A part that sees no valid key
-// writes o = 0, l = 0, m = kNegInf / 2, which the merge weighs by exactly
-// 0 next to the part holding the tree (which always holds the node
-// itself).
+// kv head h of batch row b (x = b*Hkv + h), the query rows [y*R, ...) of
+// its G*W (R = kRows for the walks over the cache; row r = g*W + w reads
+// query head h*G + g, the reference's grouping), and one contiguous range
+// of cache slots, the W fresh tree KVs under the ancestor mask, or both
+// (split_block: the tree is a part of its own when it spans more than one
+// tile, else the last split's block walks it after its slots;
+// cache_block: slots only).  It writes the unnormalized fp32 partial
+// (o, m, l) of its part into a workspace in the cm.merge_partials layout,
+// part-major; merge_kernel then folds the parts into o / max(l, 1e-30) in
+// q's dtype (B1, B2), or carry_fold_kernel into one unnormalized partial
+// (B3).  A part that sees no valid key writes o = 0, l = 0,
+// m = kNegInf / 2, which the merge weighs by exactly 0 next to a part that
+// sees one (the tree part always holds the node itself).  tree_block (B5)
+// walks the tree alone and stores o / max(l, 1e-30) from its registers.
 //
-// Inside a block each of the kWarps warps owns 16 query rows (with G*W <=
-// 32 rows the warps share rows and split each key tile: Rows): their Q
+// Inside a block each of the kWarps warps owns 16 query rows (with <= 32
+// rows a block the warps share rows and split each key tile: Rows): their Q
 // fragments, O accumulator and row m, l stay in registers for the whole
 // walk.  Keys come in tiles of kTile; per tile a warp computes S = Q K^T
 // (m16n8k16, K fragments by ldmatrix from bf16 rows padded by 16 bytes, so
@@ -173,10 +176,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 
 // ---------------------------------------------------------------- warp
 // One warp's 16 query rows (lane holds rows lane/4 and lane/4 + 8) and
-// its share of each key tile.  With G*W <= 16 rows all four warps hold the
-// same rows and split every tile four ways (<= 32 rows: two ways), so the
-// products of a small verify or decode run on four warps, not one; the
-// groups' (o, m, l) are folded at the end (store_part).
+// its share of each key tile.  With <= 16 rows a block all four warps hold
+// the same rows and split every tile four ways (<= 32 rows: two ways), so
+// the products of a small verify or decode (or a small row tile of B5) run
+// on four warps, not one; the groups' (o, m, l) are folded at the end
+// (fold_rows).
 struct Rows {
   uint32_t q[kHdMax / 16][4];   // A fragments of Q
   float o[kHdMax / 8][4];       // C fragments of O
@@ -193,6 +197,24 @@ struct Block {
   int b, h, W, Hq, Hkv, G, hd, r0, nr;
   float scale;
 };
+
+// Block (blockIdx.x = b*Hkv + h, blockIdx.y) of `rows` (<= kRows) query
+// rows a block.
+__device__ __forceinline__ Block make_block(int Hkv, int W, int Hq, int hd,
+                                            int rows, float scale) {
+  Block k;
+  k.b = blockIdx.x / Hkv;
+  k.h = blockIdx.x % Hkv;
+  k.W = W;
+  k.Hq = Hq;
+  k.Hkv = Hkv;
+  k.G = Hq / Hkv;
+  k.hd = hd;
+  k.r0 = blockIdx.y * rows;
+  k.nr = min(rows, k.G * W - k.r0);
+  k.scale = scale;
+  return k;
+}
 
 // ---------------------------------------------------------------- slots
 // A policy copies a tile's raw metadata (copy_meta, cp.async), then
@@ -288,7 +310,9 @@ struct TreeSlots {
 };
 
 // The warp's rows and keys, then its rows' Q fragments from q (B, W, Hq,
-// hd) (zero past hd or past the block's rows), q_pos and lo.
+// hd) (zero past hd or past the block's rows), q_pos and lo (null for a
+// walk of the tree alone, which reads neither: qpos = 0 then marks a real
+// row).
 __device__ __forceinline__ void load_rows(Rows& R, const Block& k,
                                           const __nv_bfloat16* q,
                                           const int* q_pos, const int* lo) {
@@ -306,8 +330,8 @@ __device__ __forceinline__ void load_rows(Rows& R, const Block& k,
     const int r = k.r0 + lr;
     const bool ok = lr < k.nr;
     const int g = ok ? r / k.W : 0, w = ok ? r % k.W : 0;
-    R.qpos[e] = ok ? __ldg(q_pos + k.b * k.W + w) : -1;
-    R.lo[e] = ok ? __ldg(lo + k.b * k.W + w) : 0;
+    R.qpos[e] = !ok ? -1 : q_pos ? __ldg(q_pos + k.b * k.W + w) : 0;
+    R.lo[e] = ok && lo ? __ldg(lo + k.b * k.W + w) : 0;
     if (ok) {
       qmin = min(qmin, R.qpos[e]);
       lomax = max(lomax, R.lo[e]);
@@ -344,11 +368,19 @@ __device__ __forceinline__ void load_rows(Rows& R, const Block& k,
 // of `ld`) through its rows.  FULL: every key is valid for every row (no
 // per-element mask); else valid(e, t) says whether row e (0: lane/4, 1:
 // lane/4 + 8) sees key t of the tile.
-template <int KN, bool FULL, class Valid>
+//
+// PRECISE (the cache-only walk, whose unnormalized fp32 partial is held to
+// the plain version's at an absolute tolerance): P enters P V as two bf16
+// terms, hi = bf16(p) and lo = bf16(p - hi), so P keeps ~16 bits; and an
+// int8 tile holds its codes exactly (ksc, vsc: the warp's keys' scales,
+// else null), so each score is scaled by its key's K scale after Q K^T
+// and each p by its key's V scale before the split, all in fp32.
+template <int KN, bool FULL, bool PRECISE, class Valid>
 __device__ __forceinline__ void attend(Rows& R, const __nv_bfloat16* Ks,
                                        const __nv_bfloat16* Vs, int ld,
                                        int hd, float scale,
-                                       const Valid& valid) {
+                                       const Valid& valid,
+                                       const float* ksc, const float* vsc) {
   const int lane = threadIdx.x % 32;
   const int nkb = (hd + 15) / 16;
   Ks += R.key0 * ld;
@@ -371,6 +403,15 @@ __device__ __forceinline__ void attend(Rows& R, const __nv_bfloat16* Ks,
       mma(s[2 * np], R.q[kb], bk[0], bk[1]);
       mma(s[2 * np + 1], R.q[kb], bk[2], bk[3]);
     }
+  }
+
+  // key of element (nb, e) among the warp's keys
+  auto key = [&](int nb, int e) { return nb * 8 + (lane & 3) * 2 + (e & 1); };
+  if (PRECISE && ksc != nullptr) {
+#pragma unroll
+    for (int nb = 0; nb < KN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] *= ksc[key(nb, e)];
   }
 
   // mask, online softmax (a row's four lanes are one quad)
@@ -427,10 +468,21 @@ __device__ __forceinline__ void attend(Rows& R, const __nv_bfloat16* Ks,
   // O += P V: P's C fragments of two 8-key blocks are one A fragment
 #pragma unroll
   for (int kk = 0; kk < KN / 16; ++kk) {
-    uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                      pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                      pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                      pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    uint32_t pa[4], lo[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int nb = 2 * kk + (x >> 1), e = (x & 1) * 2;
+      float p0 = s[nb][e], p1 = s[nb][e + 1];
+      if (PRECISE && vsc != nullptr) {
+        p0 *= vsc[key(nb, e)];
+        p1 *= vsc[key(nb, e + 1)];
+      }
+      pa[x] = pack_bf16(p0, p1);
+      if constexpr (PRECISE) {
+        const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&pa[x]);
+        lo[x] = pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+    }
 #pragma unroll
     for (int dp = 0; dp < kHdMax / 16; ++dp) {
       if (dp >= nkb) break;
@@ -439,12 +491,16 @@ __device__ __forceinline__ void attend(Rows& R, const __nv_bfloat16* Ks,
                              ld + dp * 16 + ((lane >> 4) << 3));
       mma(R.o[2 * dp], pa, bv[0], bv[1]);
       mma(R.o[2 * dp + 1], pa, bv[2], bv[3]);
+      if constexpr (PRECISE) {
+        mma(R.o[2 * dp], lo, bv[0], bv[1]);
+        mma(R.o[2 * dp + 1], lo, bv[2], bv[3]);
+      }
     }
   }
 }
 
 // One tile through the warp's KN keys: the full-tile test, then attend.
-template <int KN, class P>
+template <int KN, class P, bool PRECISE>
 __device__ __forceinline__ void attend_tile(Rows& R, const Meta& m,
                                             const __nv_bfloat16* Ks,
                                             const __nv_bfloat16* Vs, int ld,
@@ -469,9 +525,11 @@ __device__ __forceinline__ void attend_tile(Rows& R, const Meta& m,
       return ((wd[t >> 5] >> (t & 31)) & 1u) != 0u;
     };
     if (full)
-      attend<KN, true>(R, Ks, Vs, ld, k.hd, k.scale, valid);
+      attend<KN, true, PRECISE>(R, Ks, Vs, ld, k.hd, k.scale, valid, nullptr,
+                                nullptr);
     else
-      attend<KN, false>(R, Ks, Vs, ld, k.hd, k.scale, valid);
+      attend<KN, false, PRECISE>(R, Ks, Vs, ld, k.hd, k.scale, valid,
+                                 nullptr, nullptr);
   } else {
     const int* kps = m.kp;
     auto valid = [&](int e, int t) {
@@ -483,10 +541,16 @@ __device__ __forceinline__ void attend_tile(Rows& R, const Meta& m,
       const int kp = kps[R.key0 + t];
       f = f && kp >= 0 && kp <= R.qmin && kp > R.lomax;
     }
+    // a precise int8 tile holds codes: its keys' scales come along
+    const bool codes = PRECISE && sizeof(typename P::E) == 1;
+    const float* ksc = codes ? m.ksc + R.key0 : nullptr;
+    const float* vsc = codes ? m.vsc + R.key0 : nullptr;
     if (__all_sync(0xffffffffu, f))
-      attend<KN, true>(R, Ks, Vs, ld, k.hd, k.scale, valid);
+      attend<KN, true, PRECISE>(R, Ks, Vs, ld, k.hd, k.scale, valid, ksc,
+                                vsc);
     else
-      attend<KN, false>(R, Ks, Vs, ld, k.hd, k.scale, valid);
+      attend<KN, false, PRECISE>(R, Ks, Vs, ld, k.hd, k.scale, valid, ksc,
+                                 vsc);
   }
 }
 
@@ -499,7 +563,7 @@ __device__ __forceinline__ void attend_tile(Rows& R, const Meta& m,
 // metadata, as one commit group; dequantize (int8); compute tile i.  No
 // thread waits on a global read outside the cp.async groups, except the
 // tree's mask bits.
-template <class P, class Start>
+template <bool PRECISE = false, class P, class Start>
 __device__ __forceinline__ void walk(Rows& R, const Block& k, const P& p,
                                      char* smem, const Layout& L,
                                      int j_begin, int j_end,
@@ -618,7 +682,8 @@ __device__ __forceinline__ void walk(Rows& R, const Block& k, const P& p,
     if (!any) continue;
     const __nv_bfloat16* Ks;
     if constexpr (kInt8) {
-      // codes x scale, rounded to bf16, into stage 0
+      // codes x scale, rounded to bf16, into stage 0 (PRECISE: the codes
+      // alone, exact in bf16; attend applies the scales in fp32)
       const int8_t* k8 =
           reinterpret_cast<const int8_t*>(raw + (i % kStages) * raw_stage);
       const int8_t* v8 = k8 + kTile * hd;
@@ -627,7 +692,8 @@ __device__ __forceinline__ void walk(Rows& R, const Block& k, const P& p,
       const int n8 = hd / 8;
       for (int x = tid; x < kTile * n8; x += kThreads) {
         const int t = x / n8, c = (x % n8) * 8;
-        const float ksc = m.ksc[t], vsc = m.vsc[t];
+        const float ksc = PRECISE ? 1.f : m.ksc[t];
+        const float vsc = PRECISE ? 1.f : m.vsc[t];
         const int2 kc = *reinterpret_cast<const int2*>(k8 + t * hd + c);
         const int2 vc = *reinterpret_cast<const int2*>(v8 + t * hd + c);
         const int8_t* ke = reinterpret_cast<const int8_t*>(&kc);
@@ -652,11 +718,11 @@ __device__ __forceinline__ void walk(Rows& R, const Block& k, const P& p,
     const __nv_bfloat16* Vs = Ks + kTile * ld;
     if (R.lr0 >= k.nr) continue;
     if (R.groups == 4)
-      attend_tile<kTile / 4, P>(R, m, Ks, Vs, ld, k);
+      attend_tile<kTile / 4, P, PRECISE>(R, m, Ks, Vs, ld, k);
     else if (R.groups == 2)
-      attend_tile<kTile / 2, P>(R, m, Ks, Vs, ld, k);
+      attend_tile<kTile / 2, P, PRECISE>(R, m, Ks, Vs, ld, k);
     else
-      attend_tile<kTile, P>(R, m, Ks, Vs, ld, k);
+      attend_tile<kTile, P, PRECISE>(R, m, Ks, Vs, ld, k);
   }
   cp_async_wait<0>();
 }
@@ -675,20 +741,17 @@ __device__ __forceinline__ void zero_pad(char* smem, const Layout& L,
   }
 }
 
-// The block's partial (o, m, l) of part `part` into the workspace:
-// o (parts, B, W, Hq, hd) fp32, m and l (parts, B, Hq, W); m clamped to
-// kNegInf / 2 (the reference's m_safe).  With key groups, every warp first
-// parks its (o, m, l) in the ring's shared memory; then the `groups` warps
-// of a row group fold them (the Eq.-1 merge, lane by lane: every group's
-// lane holds the same rows and columns) for one share of the columns each
-// and store that share.  Only the n-blocks that head_dim fills are parked:
-// kWarps x (4 * nbs + 4) x 32 floats, 2,048 * (2 * nkb + 1) bytes, which
-// the ring's 12,288 * nkb + 6,144 always holds (parking all kHdMax
-// columns would overrun a block of head_dim 16).
-__device__ __forceinline__ void store_part(Rows& R, const Block& k,
-                                           char* smem, float* ws_o,
-                                           float* ws_m, float* ws_l, int B,
-                                           int part) {
+// Fold the warps' key groups and reduce each row's l over its quad: with
+// key groups, every warp first parks its (o, m, l) in the ring's shared
+// memory; then the `groups` warps of a row group fold them (the Eq.-1
+// merge, lane by lane: every group's lane holds the same rows and columns)
+// for one share of the columns each.  Only the n-blocks that head_dim
+// fills are parked: kWarps x (4 * nbs + 4) x 32 floats, 2,048 * (2 * nkb +
+// 1) bytes, which the ring's 12,288 * nkb + 6,144 always holds (parking
+// all kHdMax columns would overrun a block of head_dim 16).  Returns the
+// warp's share of the n-blocks, [x, y).
+__device__ __forceinline__ int2 fold_rows(Rows& R, const Block& k,
+                                          char* smem) {
   constexpr int kNb = kHdMax / 8;        // n-blocks of O the registers hold
   const int nbs = (k.hd + 15) / 16 * 2;  // n-blocks head_dim fills
   const int regs = nbs * 4 + 4;          // parked: o, then m[2], l[2]
@@ -754,6 +817,21 @@ __device__ __forceinline__ void store_part(Rows& R, const Block& k,
     R.l[e] += __shfl_xor_sync(0xffffffffu, R.l[e], 1);
     R.l[e] += __shfl_xor_sync(0xffffffffu, R.l[e], 2);
   }
+  return make_int2(nb0, nb1);
+}
+
+// The block's partial (o, m, l) of part `part` into the workspace:
+// o (parts, B, W, Hq, hd) fp32, m and l (parts, B, Hq, W); m clamped to
+// kNegInf / 2 (the reference's m_safe).  Each warp stores its share of
+// the columns (fold_rows).  Part 0 of a one-part workspace is the
+// cm.merge_partials layout itself.
+__device__ __forceinline__ void store_part(Rows& R, const Block& k,
+                                           char* smem, float* ws_o,
+                                           float* ws_m, float* ws_l, int B,
+                                           int part) {
+  constexpr int kNb = kHdMax / 8;
+  const int2 share = fold_rows(R, k, smem);
+  const int lane = threadIdx.x % 32;
   const size_t n_o = (size_t)B * k.W * k.Hq * k.hd;
   const size_t n_m = (size_t)B * k.Hq * k.W;
 #pragma unroll
@@ -766,7 +844,7 @@ __device__ __forceinline__ void store_part(Rows& R, const Block& k,
 #pragma unroll
     for (int nb = 0; nb < kNb; ++nb) {
       const int col = nb * 8 + (lane & 3) * 2;
-      if (nb >= nb0 && nb < nb1 && col < k.hd)
+      if (nb >= share.x && nb < share.y && col < k.hd)
         *reinterpret_cast<float2*>(o + col) =
             make_float2(R.o[nb][2 * e], R.o[nb][2 * e + 1]);
     }
@@ -774,6 +852,32 @@ __device__ __forceinline__ void store_part(Rows& R, const Block& k,
       const size_t idx = part * n_m + ((size_t)k.b * k.Hq + hq) * k.W + w;
       ws_m[idx] = fmaxf(R.m[e], kNegInf * 0.5f);
       ws_l[idx] = R.l[e];
+    }
+  }
+}
+
+// The block's rows normalized, o / max(l, 1e-30), in bf16 into `out`
+// (B, W, Hq, hd) straight from the registers: a row that saw no key
+// (l = 0) stores 0.
+__device__ __forceinline__ void store_normalized(Rows& R, const Block& k,
+                                                 char* smem,
+                                                 __nv_bfloat16* out) {
+  constexpr int kNb = kHdMax / 8;
+  const int2 share = fold_rows(R, k, smem);
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int lr = R.lr0 + lane / 4 + 8 * e;
+    if (lr >= k.nr) continue;
+    const int r = k.r0 + lr, g = r / k.W, w = r % k.W;
+    const float inv = 1.0f / fmaxf(R.l[e], 1e-30f);
+    uint32_t* o = reinterpret_cast<uint32_t*>(
+        out + ((size_t)(k.b * k.W + w) * k.Hq + k.h * k.G + g) * k.hd);
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb) {
+      const int col = nb * 8 + (lane & 3) * 2;
+      if (nb >= share.x && nb < share.y && col < k.hd)
+        o[col / 2] = pack_bf16(R.o[nb][2 * e] * inv, R.o[nb][2 * e + 1] * inv);
     }
   }
 }
@@ -791,17 +895,7 @@ __device__ __forceinline__ void split_block(
     const __nv_bfloat16* q, const int* q_pos, const int* lo, float* ws_o,
     float* ws_m, float* ws_l, int B, int Hq, int S, int nsplit,
     int split_len, int parts, float scale) {
-  Block k;
-  k.b = cache.b;
-  k.h = cache.h;
-  k.W = tree.W;
-  k.Hq = Hq;
-  k.Hkv = tree.Hkv;
-  k.G = Hq / tree.Hkv;
-  k.hd = tree.hd;
-  k.r0 = blockIdx.y * kRows;
-  k.nr = min(kRows, k.G * k.W - k.r0);
-  k.scale = scale;
+  const Block k = make_block(tree.Hkv, tree.W, Hq, tree.hd, kRows, scale);
   const Layout L = layout(k.hd);
   zero_pad(smem, L, k.hd);
   Rows R;
@@ -820,6 +914,45 @@ __device__ __forceinline__ void split_block(
   if (split < 0 || (!apart && split == nsplit - 1))
     walk(R, k, tree, smem, L, 0, k.W, start);
   store_part(R, k, smem, ws_o, ws_m, ws_l, B, z);
+}
+
+// One block of the cache-only walk (B3), grid (B*Hkv, row tiles, n_split):
+// the slots of split z = blockIdx.z, no tree, at any W (a W=256 piece has
+// four row tiles), into part z of ws (n_split == 1: ws is the caller's
+// (o, m, l) itself).  Its partial leaves unnormalized, so it walks
+// PRECISE (attend): P in two bf16 terms, an int8 pool's scales in fp32.
+template <class C>
+__device__ __forceinline__ void cache_block(char* smem, const C& cache,
+                                            const Block& k,
+                                            const __nv_bfloat16* q,
+                                            const int* q_pos, const int* lo,
+                                            float* ws_o, float* ws_m,
+                                            float* ws_l, int B, int S,
+                                            int split_len) {
+  const Layout L = layout(k.hd);
+  zero_pad(smem, L, k.hd);
+  Rows R;
+  auto start = [&] { load_rows(R, k, q, q_pos, lo); };
+  const int jb = blockIdx.z * split_len;
+  walk<true>(R, k, cache, smem, L, jb, min(S, jb + split_len), start);
+  store_part(R, k, smem, ws_o, ws_m, ws_l, B, blockIdx.z);
+}
+
+// One block of the normalized tree attention (B5), grid (B*Hkv, row
+// tiles): the block's k.nr rows over the W tree KVs under the ancestor
+// mask, then o / max(l, 1e-30) from the registers.  With 16 rows a block
+// the four warps split each 64-key tile four ways (32 rows: two), so a
+// small row tile still keeps every warp on the products.
+__device__ __forceinline__ void tree_block(char* smem, const TreeSlots& tree,
+                                           const Block& k,
+                                           const __nv_bfloat16* q,
+                                           __nv_bfloat16* out) {
+  const Layout L = layout(k.hd);
+  zero_pad(smem, L, k.hd);
+  Rows R;
+  auto start = [&] { load_rows(R, k, q, nullptr, nullptr); };
+  walk(R, k, tree, smem, L, 0, k.W, start);
+  store_normalized(R, k, smem, out);
 }
 
 // The Eq.-1 merge of `parts` partials into o / max(l, 1e-30) in q's
@@ -858,6 +991,48 @@ __global__ void __launch_bounds__(128)
   dst[1] = attn::from_f32<TQ>(acc.y * inv);
   dst[2] = attn::from_f32<TQ>(acc.z * inv);
   dst[3] = attn::from_f32<TQ>(acc.w * inv);
+}
+
+// The carry fold of `parts` partials into ONE unnormalized partial (the
+// cache-only walk, B3, when it is split over the cache): m* = max_p m_p,
+// l* = sum_p l_p e^(m_p - m*), o* = sum_p o_p e^(m_p - m*) (the rule of
+// cm.merge_partials_carry, part after part), m* clamped to kNegInf / 2.
+// An all-masked row (every part at m = kNegInf / 2, l = 0, o = 0) keeps
+// m = kNegInf / 2, l = 0, o = 0, so it still drops out of the caller's
+// merge.  A thread per 4 elements of one (b, w, query head) row, as
+// merge_kernel; the row's first thread writes m and l.
+__global__ void __launch_bounds__(128)
+    carry_fold_kernel(const float* ws_o, const float* ws_m,
+                      const float* ws_l, int parts, float* o, float* m,
+                      float* l, int B, int W, int Hq, int hd) {
+  const int per_row = hd / 4;
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= (long long)B * W * Hq * per_row) return;
+  const int row = (int)(x / per_row), d = (int)(x % per_row) * 4;
+  const int hq = row % Hq, w = (row / Hq) % W, b = row / (W * Hq);
+  const size_t n_o = (size_t)B * W * Hq * hd, n_m = (size_t)B * Hq * W;
+  const size_t mi = ((size_t)b * Hq + hq) * W + w;
+  float m_star = ws_m[mi];
+  for (int p = 1; p < parts; ++p) m_star = fmaxf(m_star, ws_m[p * n_m + mi]);
+  m_star = fmaxf(m_star, kNegInf * 0.5f);
+  float l_star = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* src = ws_o + (size_t)row * hd + d;
+#pragma unroll 4
+  for (int p = 0; p < parts; ++p) {
+    const float c = expf(ws_m[p * n_m + mi] - m_star);
+    l_star += ws_l[p * n_m + mi] * c;
+    const float4 v = *reinterpret_cast<const float4*>(src + p * n_o);
+    acc.x += v.x * c;
+    acc.y += v.y * c;
+    acc.z += v.z * c;
+    acc.w += v.w * c;
+  }
+  *reinterpret_cast<float4*>(o + (size_t)row * hd + d) = acc;
+  if (d == 0) {
+    m[mi] = m_star;
+    l[mi] = l_star;
+  }
 }
 
 }  // namespace flash

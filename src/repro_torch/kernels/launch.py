@@ -1,10 +1,10 @@
 """What every kernel wrapper does around its launch: count its launches,
 pick the key tile and the query-row tile that fit a block's shared memory,
-pick the split over the cache of the split walks (B1, B2) and lay out
-their partials' workspace, check the operands' device, layout and
-alignment, and launch on PyTorch's current stream, raising on a CUDA error
-(a refused launch never runs, so ``torch.cuda.synchronize`` would not
-report it).
+pick the split over the cache of the split walks (B1, B2, and B3 with no
+tree part) and lay out their partials' workspace, check the operands'
+device, layout and alignment, and launch on PyTorch's current stream,
+raising on a CUDA error (a refused launch never runs, so
+``torch.cuda.synchronize`` would not report it).
 """
 from __future__ import annotations
 
@@ -105,11 +105,11 @@ def _pick(smem_bytes, GW, W, hd):
 
 
 def flash_route(q_dtype, pool_dtype, hd, scaled=False) -> bool:
-    """Whether a split walk (B1, B2) runs on the tensor cores: bf16
+    """Whether a split walk (B1, B2, B3) runs on the tensor cores: bf16
     queries over bf16 keys without scales (or an int8 pool, dequantized to
     bf16 on the way), head_dim within the register tiles.  Otherwise its
     products run on the CUDA cores in fp32 in the same split grid.  The C
-    sources (``use_flash`` / ``kFlash``) state the same rule."""
+    sources (``use_flash``) state the same rule."""
     return (q_dtype == torch.bfloat16 and hd <= FLASH_HD_MAX
             and (pool_dtype == torch.int8
                  or (pool_dtype == torch.bfloat16 and not scaled)))
@@ -153,14 +153,16 @@ _PLANS: Dict[tuple, Tuple[object, Tuple[int, int, int, int, int]]] = {}
 
 
 def split_plan(smem_bytes, flash_smem_bytes, flash_blocks_per_sm, sms, flash,
-               B, W, Hq, Hkv, hd, S, page=1):
+               B, W, Hq, Hkv, hd, S, page=1, tree=True):
     """``(tile, rows, n_split, split_len, parts)`` of a split walk (B1,
-    B2).  The tensor-core path takes ``FLASH_TILE`` keys and
-    ``FLASH_ROWS`` rows a block (``flash_smem_bytes(hd)`` must fit); the
-    CUDA-core path takes ``pick_tiles``' choice.  ``parts`` partials: one
-    per split, and one more for the tree unless the tensor-core path walks
-    a tree of at most one key tile in the last split's block
-    (``flash_common.cuh::split_block``).
+    B2; B3 with ``tree=False``).  The tensor-core path takes
+    ``FLASH_TILE`` keys and ``FLASH_ROWS`` rows a block
+    (``flash_smem_bytes(hd)`` must fit); the CUDA-core path takes
+    ``pick_tiles``' choice.  ``parts`` partials: one per split, and for a
+    walk with a tree one more unless the tensor-core path walks a tree of
+    at most one key tile in the last split's block
+    (``flash_common.cuh::split_block``); the cache-only walk has no tree
+    part, so ``parts == n_split`` at every W.
 
     The card holds ``flash_blocks_per_sm(hd)`` blocks (the library's
     occupancy query of its tensor-core walk) on each of its ``sms`` SMs at
@@ -168,7 +170,7 @@ def split_plan(smem_bytes, flash_smem_bytes, flash_blocks_per_sm, sms, flash,
     128 take, counts the same slots at head_dim 128: its split count sets
     how many blocks run, never what they compute."""
     key = (id(smem_bytes), id(flash_smem_bytes), id(flash_blocks_per_sm),
-           sms, flash, B, W, Hq, Hkv, hd, S, page)
+           sms, flash, B, W, Hq, Hkv, hd, S, page, tree)
     hit = _PLANS.get(key)
     if hit is None:
         GW = Hq // Hkv * W
@@ -184,7 +186,8 @@ def split_plan(smem_bytes, flash_smem_bytes, flash_blocks_per_sm, sms, flash,
             raise RuntimeError(f"the occupancy query of the split walk "
                                f"failed at head_dim {hd} ({per_sm})")
         blocks = B * Hkv * -(-GW // rows)
-        apart = not flash or W > FLASH_TILE     # the tree: a part of its own
+        # the tree: a part of its own
+        apart = tree and (not flash or W > FLASH_TILE)
         n_split, split_len = pick_split(S, blocks, tile, per_sm * sms, page,
                                         extra=blocks if apart else 0)
         parts = n_split + apart
@@ -196,7 +199,7 @@ def split_plan(smem_bytes, flash_smem_bytes, flash_blocks_per_sm, sms, flash,
 
 def workspace(q, parts):
     """The split walk's fp32 partials for ``parts`` parts (the splits and
-    the tree), in one allocation on q's device (from the current
+    any tree part), in one allocation on q's device (from the current
     stream's pool): ``(buffer, o, m, l)`` with the pointers of o
     ``(parts, B, W, Hq, hd)`` and m, l ``(parts, B, Hq, W)``, the
     ``cm.merge_partials`` layout part by part.  Every element is written
@@ -207,6 +210,26 @@ def workspace(q, parts):
     buf = torch.empty(n_o + 2 * n_m, dtype=torch.float32, device=q.device)
     o = buf.data_ptr()
     return buf, o, o + 4 * n_o, o + 4 * (n_o + n_m)
+
+
+def partial_outputs(q, parts):
+    """The cache-only walk's (B3) unnormalized partial: ``o (B, W, Hq,
+    hd)``, ``m, l (B, Hq, W)`` fp32 in the merge layout, and, for a walk
+    of ``parts > 1`` splits, the pointers of their workspace (else None),
+    all in ONE allocation: ``workspace``'s layout with the output as part 0
+    and the splits as parts 1 .. parts (one allocation and three views cost
+    the host less than four allocations).  The outputs keep the workspace
+    alive; the caller merges and drops them within the step."""
+    B, W, Hq, hd = q.shape
+    n = 1 if parts == 1 else parts + 1
+    buf, o_ptr, m_ptr, l_ptr = workspace(q, n)
+    n_o, n_m = B * W * Hq * hd, B * Hq * W
+    o = buf.as_strided((B, W, Hq, hd), (W * Hq * hd, Hq * hd, hd, 1), 0)
+    m = buf.as_strided((B, Hq, W), (Hq * W, W, 1), n * n_o)
+    l = buf.as_strided((B, Hq, W), (Hq * W, W, 1), n * (n_o + n_m))
+    if parts == 1:
+        return o, m, l, (None, None, None)
+    return o, m, l, (o_ptr + 4 * n_o, m_ptr + 4 * n_m, l_ptr + 4 * n_m)
 
 
 def check_common(q, tensors, vectors):
@@ -227,10 +250,16 @@ def check_common(q, tensors, vectors):
 def launch(wrapper: Counted, fn, error_string, device, *args):
     """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
     stream; raise with the CUDA error's text if it returns one, else count
-    one launch of ``wrapper``."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    one launch of ``wrapper``.  The stream is read as its raw handle (no
+    ``torch.cuda.Stream`` object is built per call), and the device is
+    switched only when it is not the calling thread's current one: both
+    are host time on every kernel call of a host-bound serve."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if torch.cuda.current_device() == device.index:
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{err} ({error_string(err).decode()})")

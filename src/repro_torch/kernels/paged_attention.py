@@ -5,10 +5,14 @@
 
 Both take the exact argument layout of their plain versions in
 ``plain.py``.  A CPU tensor runs the plain version; a CUDA tensor launches
-the kernel or raises, with no fallback between the two.  The fused walk is
-a split walk into an fp32 partials workspace, then the Eq.-1 merge (two
-kernels from one C call, counted as one launch).  Each wrapper
-counts its own kernel launches in ``.launches`` (and nothing else).
+the kernel or raises, with no fallback between the two.  Both are split
+walks over the cache (``launch.split_plan``).  The fused walk writes an
+fp32 partials workspace, then the Eq.-1 merge normalizes it (two kernels
+from one C call, counted as one launch).  The cache-only walk has no tree
+part: with one split it writes its ``(o, m, l)`` outputs directly, with
+more it writes the workspace and a carry fold folds the splits into one
+unnormalized partial (two kernels, one launch).  Each wrapper counts its
+own kernel launches in ``.launches`` (and nothing else).
 
 The pool may be float32, bfloat16 or int8 (then with its per-page scales);
 q, the tree KVs and the output share q's dtype, float32 or bfloat16.  Every
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import (Counted, check_common, flash_route,
-                                        launch, pick_tiles, sm_count,
+                                        launch, partial_outputs, sm_count,
                                         split_plan, workspace)
 from repro_torch.kernels.plain import (paged_cache_attention_plain,
                                        paged_tree_attention_plain)
@@ -42,7 +46,7 @@ def _bind():
     lib = build.load("paged_attention")
     lib.paged_tree_attention.argtypes = ([_I, _I] + [_P] * 16 + [_I] * 12
                                          + [ctypes.c_float, _P])
-    lib.paged_cache_attention.argtypes = ([_I, _I] + [_P] * 12 + [_I] * 9
+    lib.paged_cache_attention.argtypes = ([_I, _I] + [_P] * 15 + [_I] * 12
                                           + [ctypes.c_float, _P])
     lib.paged_tree_attention.restype = _I
     lib.paged_cache_attention.restype = _I
@@ -50,8 +54,10 @@ def _bind():
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
     lib.paged_attention_flash_smem_bytes.argtypes = [_I]
     lib.paged_attention_flash_smem_bytes.restype = ctypes.c_size_t
-    lib.paged_attention_flash_blocks_per_sm.argtypes = [_I]
-    lib.paged_attention_flash_blocks_per_sm.restype = _I
+    for f in (lib.paged_attention_flash_blocks_per_sm,
+              lib.paged_cache_flash_blocks_per_sm):
+        f.argtypes = [_I]
+        f.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -118,15 +124,27 @@ def _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos, q_pos,
     return B, W, Hq, Hkv, hd, ps, maxp
 
 
-def _launch(wrapper, q, pool_k, dims, operands, split=None, ws=()):
-    """Launch ``wrapper``'s C entry point; ``split = (tile, rows, n_split,
-    split_len, parts)`` and the workspace pointers ``ws`` for the fused
-    split walk, else the cache-only walk's ``pick_tiles`` choice."""
+def _plan(q, pool_k, scale_k, dims, tree):
+    """``split_plan``'s ``(tile, rows, n_split, split_len, parts)`` of the
+    fused (``tree``) or the cache-only walk, from the library's own shared
+    memory and occupancy queries."""
     B, W, Hq, Hkv, hd, ps, maxp = dims
     lib = _bind()
-    if split is None:
-        split = pick_tiles(lib.paged_attention_smem_bytes, Hq // Hkv * W, W,
-                           hd)
+    blocks_per_sm = (lib.paged_attention_flash_blocks_per_sm if tree
+                     else lib.paged_cache_flash_blocks_per_sm)
+    return split_plan(lib.paged_attention_smem_bytes,
+                      lib.paged_attention_flash_smem_bytes, blocks_per_sm,
+                      sm_count(q.device),
+                      flash_route(q.dtype, pool_k.dtype, hd,
+                                  scale_k is not None),
+                      B, W, Hq, Hkv, hd, maxp * ps, page=ps, tree=tree)
+
+
+def _launch(wrapper, q, pool_k, dims, operands, split, ws):
+    """Launch ``wrapper``'s C entry point with ``split = (tile, rows,
+    n_split, split_len, parts)`` and the workspace pointers ``ws``."""
+    B, W, Hq, Hkv, hd, ps, maxp = dims
+    lib = _bind()
     launch(wrapper, getattr(lib, wrapper.__name__),
            lib.paged_attention_error_string, q.device, _Q_CODES[q.dtype],
            _POOL_CODES[pool_k.dtype],
@@ -147,14 +165,7 @@ def paged_tree_attention(q, pool_k, pool_v, scale_k, scale_v, k_new, v_new,
                          f"{q.device}")
     dims = _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos,
                   q_pos, lo, k_new, v_new, tree_mask)
-    B, W, Hq, Hkv, hd, ps, maxp = dims
-    lib = _bind()
-    flash = flash_route(q.dtype, pool_k.dtype, hd, scale_k is not None)
-    split = split_plan(lib.paged_attention_smem_bytes,
-                       lib.paged_attention_flash_smem_bytes,
-                       lib.paged_attention_flash_blocks_per_sm,
-                       sm_count(q.device), flash, B, W, Hq, Hkv, hd,
-                       maxp * ps, page=ps)
+    split = _plan(q, pool_k, scale_k, dims, tree=True)
     out = torch.empty_like(q)
     ws, ws_o, ws_m, ws_l = workspace(q, split[4])
     _launch(paged_tree_attention, q, pool_k, dims,
@@ -167,7 +178,8 @@ def paged_tree_attention(q, pool_k, pool_v, scale_k, scale_v, k_new, v_new,
 def paged_cache_attention(q, pool_k, pool_v, scale_k, scale_v, block_table,
                           key_pos, q_pos, lo):
     """See ``paged_cache_attention_plain``: returns the unnormalized
-    ``(o, m, l)`` partials of the page walk in the merge layout."""
+    ``(o, m, l)`` partials of the page walk in the merge layout (one
+    partial whatever the split: the splits are folded on the card)."""
     if q.device.type == "cpu":
         return paged_cache_attention_plain(q, pool_k, pool_v, scale_k,
                                            scale_v, block_table, key_pos,
@@ -177,11 +189,10 @@ def paged_cache_attention(q, pool_k, pool_v, scale_k, scale_v, block_table,
                          f"{q.device}")
     dims = _check(q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos,
                   q_pos, lo)
-    B, W, Hq = dims[:3]
-    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
+    split = _plan(q, pool_k, scale_k, dims, tree=False)
+    # one split writes o, m, l itself: no workspace pointers, no fold
+    o, m, l, ws = partial_outputs(q, split[4])
     _launch(paged_cache_attention, q, pool_k, dims,
             (q, pool_k, pool_v, scale_k, scale_v, block_table, key_pos,
-             q_pos, lo, o, m, l))
+             q_pos, lo, o, m, l), split, ws)
     return o, m, l

@@ -4,11 +4,18 @@ kernel ``csrc/tree_partial.cu`` (counterparts of the Pallas
 ``::sparse_tree_attention``).
 
 ``sparse_tree_attention_partial`` (the split verify's tree half, the
-unnormalized ``(o, m, l)`` partials) and ``sparse_tree_attention`` (the
-tree part alone, normalized, in q's dtype) take their plain versions'
+unnormalized ``(o, m, l)`` partials, B4) and ``sparse_tree_attention`` (the
+tree part alone, normalized, in q's dtype, B5) take their plain versions'
 exact arguments.  A CPU tensor runs the plain version; a CUDA tensor
 launches the kernel or raises.  Each wrapper's ``.launches`` counts its
 kernel's launches and nothing else.
+
+B5 has three routes (``norm_route``; ``csrc/tree_partial.cu`` states the
+same rule): bf16 at head_dim <= 128 on the tensor cores, fp32 with W <= 64
+and head_dim <= 128 in one exact fp32 pass on the CUDA cores, and B4's
+kernel with the normalized epilogue otherwise.  The first two cut each kv
+head's G*W query rows into small row tiles (``norm_rows``) so that a
+shape with few kv heads (Fig. 10b: 8) still fills the card.
 """
 from __future__ import annotations
 
@@ -18,8 +25,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import (Counted, check_common, launch,
-                                        pick_tiles)
+from repro_torch.kernels.launch import (FLASH_HD_MAX, Counted,
+                                        check_common, launch, pick_tiles)
 from repro_torch.kernels.plain import (sparse_tree_attention_partial_plain,
                                        sparse_tree_attention_plain)
 
@@ -37,7 +44,7 @@ def _bind():
     f.argtypes = [_I] + [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
     f.restype = _I
     f = lib.sparse_tree_attention
-    f.argtypes = [_I] + [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P]
+    f.argtypes = [_I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
     f.restype = _I
     lib.tree_partial_smem_bytes.argtypes = [_I] * 4
     lib.tree_partial_smem_bytes.restype = ctypes.c_size_t
@@ -74,17 +81,55 @@ def _check(q, k_new, v_new, tree_mask):
     return B, W, Hq, Hkv, hd
 
 
-def _launch(wrapper, q, k_new, v_new, tree_mask, outs):
+# B5's routes (the codes of csrc/tree_partial.cu::norm_route)
+ROUTE_TILES, ROUTE_FLASH, ROUTE_F32 = 0, 1, 2
+F32_KEYS = 64               # the fp32 route's one key tile
+# query rows a block, largest first, per route
+NORM_ROWS = {ROUTE_FLASH: (64, 32, 16), ROUTE_F32: (32, 16)}
+# blocks a grid should reach: about one per SM of an H100 SXM (132)
+NORM_MIN_BLOCKS = 128
+
+
+def norm_route(dtype, W, hd) -> int:
+    """B5's route: the tensor cores for bf16 at head_dim <= 128, the
+    one-pass fp32 kernel for fp32 with all W keys in one tile and head_dim
+    <= 128, else B4's kernel with the normalized epilogue."""
+    if dtype == torch.bfloat16 and hd <= FLASH_HD_MAX:
+        return ROUTE_FLASH
+    if dtype == torch.float32 and W <= F32_KEYS and hd <= FLASH_HD_MAX:
+        return ROUTE_F32
+    return ROUTE_TILES
+
+
+def norm_rows(route, B, Hkv, GW) -> int:
+    """Query rows a block of B5's route: the largest of ``NORM_ROWS`` whose
+    grid of ``B * Hkv * ceil(GW / rows)`` blocks still reaches
+    ``NORM_MIN_BLOCKS``, else the smallest (Fig. 10b, B*Hkv = 8 and
+    G*W = 256: 16 rows, 128 blocks).  A smaller tile costs more blocks
+    each reading the kv head's W keys again (from L2); a larger one leaves
+    SMs idle."""
+    choices = NORM_ROWS[route]
+    for rows in choices:
+        if B * Hkv * -(-GW // rows) >= NORM_MIN_BLOCKS:
+            return rows
+    return choices[-1]
+
+
+def _launch(wrapper, q, k_new, v_new, tree_mask, outs, route=None):
     """Check the operands and launch ``wrapper``'s entry point writing
-    ``outs``."""
+    ``outs``; B5 passes its route, the key tile and its rows."""
     B, W, Hq, Hkv, hd = _check(q, k_new, v_new, tree_mask)
     lib = _bind()
-    tile, rows = pick_tiles(lib.tree_partial_smem_bytes, Hq // Hkv * W, W,
-                            hd)
+    GW = Hq // Hkv * W
+    if route in NORM_ROWS:
+        tile, rows = 0, norm_rows(route, B, Hkv, GW)
+    else:
+        tile, rows = pick_tiles(lib.tree_partial_smem_bytes, GW, W, hd)
+    plan = (tile, rows) if route is None else (route, tile, rows)
     launch(wrapper, getattr(lib, wrapper.__name__),
            lib.tree_partial_error_string, q.device, _Q_CODES[q.dtype],
            *(t.data_ptr() for t in (q, k_new, v_new, tree_mask) + outs),
-           B, W, Hq, Hkv, hd, tile, rows, hd ** -0.5)
+           B, W, Hq, Hkv, hd, *plan, hd ** -0.5)
 
 
 def _on_cuda(name, q):
@@ -117,5 +162,6 @@ def sparse_tree_attention(q, k_new, v_new, tree_mask):
         return sparse_tree_attention_plain(q, k_new, v_new, tree_mask)
     _on_cuda("sparse_tree_attention", q)
     out = torch.empty_like(q)
-    _launch(sparse_tree_attention, q, k_new, v_new, tree_mask, (out,))
+    _launch(sparse_tree_attention, q, k_new, v_new, tree_mask, (out,),
+            route=norm_route(q.dtype, q.shape[1], q.shape[3]))
     return out

@@ -108,27 +108,76 @@ def test_tree_kernels_match_plain_on_card():
 
 @pytest.mark.gpu
 def test_split_edges_match_plain_on_card():
-    """B1 and B2's split walk at its edges (chip_smoke.SPLIT_EDGE): one,
-    two, three and one split per key tile; splits wholly unreserved, past
-    the fill or cut away by a window; a row whose cache is all masked; a
-    ragged last key tile over an int8 pool; head_dim 16 to 128; bf16, int8
-    and fp32.  One launch per call."""
+    """B1, B2 and B3's split walk at its edges (chip_smoke.SPLIT_EDGE):
+    one, two, three and one split per key tile; splits wholly unreserved,
+    past the fill or cut away by a window; a row whose cache is all
+    masked; a ragged last key tile over an int8 pool; head_dim 16 to 128;
+    bf16, int8 and fp32.  One launch per call."""
     _need_gpu()
-    wrappers = (verify_attention, pa.paged_tree_attention)
+    wrappers = (verify_attention, pa.paged_tree_attention,
+                pa.paged_cache_attention)
     before = [w.launches for w in wrappers]
     worst = chip_smoke.phase_split_edge_check(torch, np)
     n = len(chip_smoke.SPLIT_EDGE)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [n, n]
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [n, n, n]
     assert max(worst.values()) < 2e-2
 
 
 @pytest.mark.gpu
+def test_cache_walk_folds_its_splits_on_card():
+    """B3 over the split-edge cases: one unnormalized partial whatever its
+    split (one per key tile down to one), within the tolerance of q's
+    dtype of the plain version; the all-masked row 2 (lo = q_pos) comes
+    back as exactly l = 0, m = NEG_INF / 2, o = 0."""
+    _need_gpu()
+    from repro_torch.kernels import plain
+    for i, case in enumerate(chip_smoke.SPLIT_EDGE.values()):
+        _, a = chip_smoke.split_edge_inputs(torch, np, *case, seed=900 + i)
+        args = chip_smoke.paged_args(a, tree=False)
+        n = pa.paged_cache_attention.launches
+        o, m, l = pa.paged_cache_attention(*args)
+        assert pa.paged_cache_attention.launches == n + 1
+        tol = chip_smoke.TOL[str(a["q"].dtype)]
+        chip_smoke._hold(torch, "paged_cache_attention", str(case), (o, m, l),
+                         plain.paged_cache_attention_plain(*args), tol)
+        assert bool((l[2] == 0).all()) and bool((o[2] == 0).all())
+        assert bool((m[2] == -5e29).all())
+
+
+@pytest.mark.gpu
+def test_norm_tree_routes_match_plain_on_card():
+    """B5 over the reference's sparse sweep, Fig. 10b and the main path's
+    W=8 at every row tile of its route (fp32 2e-5, bf16 2e-2), one launch
+    per call."""
+    _need_gpu()
+    from repro_torch.kernels import plain
+    real = tp.norm_rows
+    try:
+        for i, (label, kw) in enumerate(chip_smoke.sparse_case_list(np)):
+            args = chip_smoke.sparse_inputs(torch, np, seed=950 + i, **kw)
+            route = tp.norm_route(args[0].dtype, kw["W"], kw["hd"])
+            for rows in tp.NORM_ROWS[route]:
+                tp.norm_rows = lambda *_, rows=rows: rows
+                n = tp.sparse_tree_attention.launches
+                got = tp.sparse_tree_attention(*args)
+                assert tp.sparse_tree_attention.launches == n + 1
+                chip_smoke._hold(torch, "sparse_tree_attention",
+                                 f"{label} {rows} rows", got,
+                                 plain.sparse_tree_attention_plain(*args),
+                                 chip_smoke.TOL[str(args[0].dtype)])
+    finally:
+        tp.norm_rows = real
+
+
+@pytest.mark.gpu
 def test_tensor_core_instances_use_mma_and_cp_async():
-    """The bf16 instances of B1 and B2 hold HMMA and LDGSTS
-    instructions."""
+    """The bf16 instances of B1, of B2 and B3 over a bf16 and an int8 pool
+    and of B5 hold HMMA and LDGSTS instructions."""
     _need_gpu()
     from repro_torch.kernels import build
     build.build()
     counts = chip_smoke.sass_counts(build)
-    assert len(counts) == 3
+    assert len(counts) == chip_smoke.TENSOR_CORE_INSTANCES == 6
+    assert sum("cache_flash_kernel" in k for k in counts) == 2
+    assert sum("tree_norm_flash_kernel" in k for k in counts) == 1
     assert all(v["HMMA"] > 0 and v["LDGSTS"] > 0 for v in counts.values())
