@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    ``nvcc`` per source, all started together; count the tensor-core
    products (HMMA) and async copies (LDGSTS) in the SASS of the six
    tensor-core instances: B1's, B2's and B3's over a bf16 and an int8
-   pool, and B5's (``cuobjdump -sass``).
+   pool, and B5's; and in the eight instances of B4's warp route
+   (``tree_warp_kernel``, fp32 multiply-adds on the CUDA cores: no HMMA)
+   (``cuobjdump -sass``).
 3. Hold each kernel against its plain PyTorch version on the card, at the
    reference's tolerances (fp32 2e-5, bf16 2e-2; every output finite):
    the dense verify kernel over the reference sweep (``tests/test_kernels.py``
@@ -20,7 +22,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    over the window-0 CASES turned into page tables and over
    PAGED_INT8_CASES (fragmented tables, -1 entries, partial last pages);
    the normalized tree kernel and the tree partial over the reference's
-   sparse sweep, the Fig. 10b shape and the main path's W=8; the dense
+   sparse sweep, the Fig. 10b shape and the main path's W=8, and the tree
+   partial over PARTIAL_EDGE (both of its routes in fp32 and bf16, the
+   route rule's edges W = 64 / 65 and head_dim 128 / 136, G up to 7, a
+   W=256 chain); the dense
    verify and the page walk at a W=256 chain (a prefill piece, four row
    tiles) and the cache-only walk there (its split carry-folded); the
    split-edge cases of B1, B2 and B3 (SPLIT_EDGE: one, two, three and one
@@ -56,7 +61,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    memory/compute bound.  Time B1 and B2 at verify W=8 with the split that
    fills the card's resident block slots once (the wrappers' rule)
    against one that fills them twice, and B5 at the Fig. 10b shape with
-   each of its row tiles (the picker's rule against the others).
+   each of its row tiles (the picker's rule against the others).  At the
+   main path's W=8, time B4's empty-launch floor on each route's grid,
+   its warp route and ``tree_partial_kernel`` (device time, beside the
+   bound), and break one B4 call's host time into its pieces, beside
+   the whole call's and the library call's, in alternating windows.
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -148,6 +157,22 @@ SPARSE_CASES = [(4, 4, 2, 32, "float32"), (16, 8, 8, 64, "float32"),
 FIG10B = dict(B=1, W=64, Hq=32, Hkv=8, hd=128, ctx=256)
 # a --prefill-chunk 256 piece at vicuna-7b's shape: a W=256 chain verify
 CHAIN_W = 256
+# B4 beside the sparse sweep: each route in fp32 and bf16, the route rule's
+# edges (the warp route takes W <= 64 and head_dim <= 128) and each of the
+# warp route's key-slot widths (8, 16, 32, 2 x 32), G up to 7, and the
+# tiles route at a W=256 chain (a prefill piece); B, W, Hq, Hkv, hd, dtype
+PARTIAL_EDGE = [(2, 64, 4, 1, 128, "float32"),     # warp: W = 64
+                (2, 65, 4, 1, 128, "float32"),     # tiles: W = 65
+                (2, 8, 4, 4, 136, "float32"),      # tiles: head_dim 136
+                (2, 8, 4, 4, 136, "bfloat16"),
+                (2, 8, 4, 4, 128, "float32"),      # warp: head_dim 128
+                (1, 64, 7, 1, 64, "bfloat16"),     # warp: G = 7, 56 blocks
+                (3, 1, 7, 1, 128, "float32"),      # warp: W = 1
+                (1, 16, 4, 1, 128, "bfloat16"),    # warp: 16 key slots
+                (2, 32, 4, 2, 128, "float32"),     # warp: 32 key slots
+                (2, 24, 8, 2, 128, "bfloat16"),
+                (1, 33, 8, 2, 64, "float32"),      # warp: 2 x 32 key slots
+                (1, CHAIN_W, 32, 32, 128, "bfloat16")]   # tiles: the chain
 
 
 class SmokeError(RuntimeError):
@@ -423,15 +448,20 @@ def phase_build():
 # the tensor-core instances phase 2 expects: B1 bf16; B2 and B3 over a
 # bf16 and an int8 pool; B5 bf16
 TENSOR_CORE_INSTANCES = 6
+# B4's warp route: fp32 and bf16 at 8, 16, 32 and 2 x 32 key slots a row
+WARP_INSTANCES = 8
 
 
 def sass_counts(build):
     """Tensor-core products (HMMA) and async copies (LDGSTS) in the SASS
     of each tensor-core (bf16) instance of B1, B2, B3 and B5 (every kernel
-    symbol with ``flash_kernel`` in its name), from ``cuobjdump -sass`` of
-    the built libraries; fails if either is missing."""
+    symbol with ``flash_kernel`` in its name), and HMMA, LDGSTS and fp32
+    multiply-adds (FFMA) in each instance of B4's warp route
+    (``tree_warp_kernel``, CUDA cores only), from ``cuobjdump -sass`` of
+    the built libraries; fails if a tensor-core instance lacks HMMA or
+    LDGSTS, or a warp instance lacks LDGSTS or FFMA or has an HMMA."""
     tool = Path(build.nvcc()).parent / "cuobjdump"
-    counts = {}
+    counts, warp = {}, {}
     for name in build.SOURCES:
         path = build.library_path(name)
         sass = subprocess.run([str(tool), "-sass", str(path)],
@@ -441,9 +471,19 @@ def sass_counts(build):
                              f"{sass.stderr.strip()}")
         for fn in sass.stdout.split("Function : ")[1:]:
             symbol = fn.split(None, 1)[0]
+            key = f"{name}:{symbol}"
+            if "tree_warp_kernel" in symbol:
+                warp[key] = {op: fn.count(op)
+                             for op in ("HMMA", "LDGSTS", "FFMA")}
+                log(f"SASS {key}: {warp[key]} (no tensor cores)")
+                if warp[key]["HMMA"] or not (warp[key]["LDGSTS"]
+                                             and warp[key]["FFMA"]):
+                    raise SmokeError(f"{key}: expected async copies, fp32 "
+                                     f"multiply-adds and no tensor-core "
+                                     f"product: {warp[key]}")
+                continue
             if "flash_kernel" not in symbol:
                 continue
-            key = f"{name}:{symbol}"
             counts[key] = {op: fn.count(op) for op in ("HMMA", "LDGSTS")}
             log(f"SASS {key}: {counts[key]}")
             if not all(counts[key].values()):
@@ -453,7 +493,10 @@ def sass_counts(build):
         raise SmokeError(f"expected {TENSOR_CORE_INSTANCES} tensor-core "
                          f"instances (B1 bf16; B2 and B3 over bf16 and int8 "
                          f"pools; B5 bf16), found {sorted(counts)}")
-    return counts
+    if len(warp) != WARP_INSTANCES:
+        raise SmokeError(f"expected {WARP_INSTANCES} instances of B4's warp "
+                         f"route, found {sorted(warp)}")
+    return dict(counts, **warp)
 
 
 def main_path_tree(np):
@@ -780,7 +823,8 @@ def phase_split_edge_check(torch, np):
 def phase_sparse_kernel_check(torch, np):
     """The normalized tree kernel (B5) and the tree partial (B4) against
     their plain versions over the reference's sparse sweep, the Fig. 10b
-    shape and the main path's W=8; the dense verify (B1), the fused page
+    shape and the main path's W=8, and B4 over ``PARTIAL_EDGE`` (both
+    routes, fp32 and bf16); the dense verify (B1), the fused page
     walk (B2) and the cache-only walk (B3, four row tiles in each of its
     two splits) at a W=256 chain, where G*W rows outgrow one block."""
     from repro_torch.kernels import paged_attention as pa
@@ -810,6 +854,21 @@ def phase_sparse_kernel_check(torch, np):
             f"W={kw['W']} Hq={kw['Hq']} Hkv={kw['Hkv']} hd={kw['hd']} "
             f"({int(kw['mask'].sum())} of {kw['W'] ** 2} mask entries): max "
             f"abs err normalized {errs[0]} partial {errs[1]}")
+    for i, (B, W, Hq, Hkv, hd, dt) in enumerate(PARTIAL_EDGE):
+        mask = chain_tree(np, W)[0] if W == CHAIN_W else \
+            rand_tree(np, W, seed=W)[0]
+        args = sparse_inputs(torch, np, B=B, W=W, Hq=Hq, Hkv=Hkv, hd=hd,
+                             dtype=dt, mask=mask, seed=400 + i)
+        e = _hold(torch, "sparse_tree_attention_partial", f"edge {i}",
+                  tp.sparse_tree_attention_partial(*args),
+                  plain.sparse_tree_attention_partial_plain(*args),
+                  TOL[str(args[0].dtype)])
+        worst["sparse_tree_attention_partial"] = max(
+            worst["sparse_tree_attention_partial"], e)
+        route = tp.partial_route(W, hd)
+        log(f"tree partial vs plain edge {i} ({'warp' if route else 'tiles'}"
+            f" route) {dt} B={B} W={W} Hq={Hq} Hkv={Hkv} hd={hd}: max abs "
+            f"err {e:.2e}")
     dense, paged = chain_cases(np)
     args = attention_inputs(torch, np, seed=7, **dense)
     worst["verify_attention"] = _hold(
@@ -1159,29 +1218,38 @@ def timed(torch, fn, sets, iters=50, warm=5):
 def host_ms(torch, fn, sets, iters=50, warm=5):
     """Mean host time of one call (ms): the host's clock around ``iters``
     calls with no synchronize among them, after ``warm`` calls (the cost
-    of enqueueing a call; the card's queue holds them all)."""
+    of enqueueing a call; the card's queue holds them all).  One window,
+    the definition of every ``host_ms`` in the kernel table; the host's
+    clock spreads between windows on a shared host, so two versions are
+    compared in one run, in alternating windows (``alternating_ms``)."""
+    return per_call_ms(torch, lambda i: fn(sets[i % len(sets)]), iters, warm)
+
+
+def per_call_ms(torch, fn, n=50, warm=5):
+    """Mean host time (ms) of ``fn(i)`` over ``n`` calls with no
+    synchronize among them, after ``warm`` calls and a synchronize."""
     for i in range(warm):
-        fn(sets[i % len(sets)])
+        fn(i)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(iters):
-        fn(sets[i % len(sets)])
+    for i in range(n):
+        fn(i)
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return 1e3 * t / iters
+    return 1e3 * t / n
 
 
 # device-side symbols of the kernels one call launches (their time in a
 # torch.profiler trace; matched as substrings, so no name holds another):
 # at the timed shapes (bf16 queries) the split walks of B1 and B2 launch
 # their tensor-core walk and the Eq.-1 merge, B3 at the main path's W=8
-# (two splits) its tensor-core walk and the carry fold; B5 one kernel of
-# its route, by q's dtype
+# (two splits) its tensor-core walk and the carry fold; B4 at W=8 its warp
+# route; B5 one kernel of its route, by q's dtype
 SYMBOLS = {"verify_attention": ("verify_flash_kernel", "merge_kernel"),
            "paged_tree_attention": ("paged_flash_kernel", "merge_kernel"),
            "paged_cache_attention": ("cache_flash_kernel",
                                      "carry_fold_kernel"),
-           "sparse_tree_attention_partial": ("tree_partial_kernel",),
+           "sparse_tree_attention_partial": ("tree_warp_kernel",),
            "sparse_tree_attention": {
                "torch.float32": ("tree_norm_f32_kernel",),
                "torch.bfloat16": ("tree_norm_flash_kernel",)}}
@@ -1380,6 +1448,131 @@ def phase_paged_timing(torch, np, card):
                 del lib_sets
             del sets
     return rows
+
+
+def alternating_ms(torch, fns, n=100, windows=7):
+    """``per_call_ms`` of each of ``fns``, their windows taken in turns
+    (fn 0, fn 1, ..., fn 0, ...), so a drift of the host's clock falls on
+    all of them alike: the medians, in the order of ``fns``."""
+    times = [[] for _ in fns]
+    for _ in range(windows):
+        for k, fn in enumerate(fns):
+            times[k].append(per_call_ms(torch, fn, n))
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
+def phase_partial(torch, np, card):
+    """B4 at the main path's W=8 (B=4, Hq=Hkv=32, hd=128, bf16) over 4
+    input sets: the device time of the empty-launch floor on each route's
+    grid (``tree_partial_floor``), of the warp route (the wrapper) and of
+    ``tree_partial_kernel`` (route 0 of ``tree_partial_launch``, which runs
+    it at any shape; held against the plain version first), each with the
+    bound; then where one wrapper call's host time goes, piece by piece:
+    the plan lookup and per-call checks, the output allocation, the stream
+    and device reads, the C call and the count, beside the whole call and
+    the efficient-attention call (``lse_library``), all in alternating
+    windows so a drift of the host's clock falls on each alike."""
+    import ctypes
+    from repro_torch.kernels import launch, plain
+    from repro_torch.kernels import tree_partial as tp
+    kw = dict(sparse_case_list(np))["main W=8"]
+    sets = [sparse_inputs(torch, np, seed=500 + r, **kw) for r in range(4)]
+    lib = tp._bind()
+    q = sets[0][0]
+    B, W, Hq, hd = q.shape
+    Hkv = sets[0][1].shape[2]
+    plan = tp.PARTIAL_PLANS.get(*sets[0])
+    if plan.route != tp.PARTIAL_WARP:
+        raise SmokeError(f"the main shape takes B4 route {plan.route}, not "
+                         f"the warp route")
+    tile, rows = launch.pick_tiles(lib.tree_partial_smem_bytes,
+                                   Hq // Hkv * W, W, hd)
+    c = plan.c_plan
+    tiles_plan = tp._TreePlan(tp.PARTIAL_TILES, c.q_dtype, B, W, Hq, Hkv,
+                              hd, tile, rows, c.scale)
+    index = q.device.index
+
+    def stream():
+        return torch._C._cuda_getCurrentRawStream(index)
+
+    def checked(err):
+        if err:
+            raise SmokeError(f"B4 entry failed: CUDA error {err} "
+                             f"({lib.tree_partial_error_string(err)})")
+
+    def floor(p):
+        return lambda a: checked(lib.tree_partial_floor(
+            ctypes.addressof(p), stream()))
+
+    def tiles(a):
+        outs, out = plan.outputs()
+        checked(lib.tree_partial_launch(ctypes.addressof(tiles_plan),
+                                        *launch.pointers(a, 3), out,
+                                        stream()))
+        return outs
+
+    err = _hold(torch, "tree_partial_kernel", "main W=8", tiles(sets[0]),
+                plain.sparse_tree_attention_partial_plain(*sets[0]),
+                TOL[str(q.dtype)])
+    outs = plain.sparse_tree_attention_partial_plain(*sets[0])
+    nbytes = sum(t.numel() * t.element_size() for t in sets[0] + outs)
+    nnz = int(sets[0][3].sum())
+    ops = 4 * B * Hq * hd * nnz
+    bound_ms, bound_by = bound(nbytes, ops, q.dtype)
+    dev = {"floor warp": device_ms(torch, floor(c), sets,
+                                   ("tree_floor_kernel",)),
+           "floor tiles": device_ms(torch, floor(tiles_plan), sets,
+                                    ("tree_floor_kernel",)),
+           "warp": device_ms(torch,
+                             lambda a: tp.sparse_tree_attention_partial(*a),
+                             sets, SYMBOLS["sparse_tree_attention_partial"]),
+           "tiles": device_ms(torch, tiles, sets, ("tree_partial_kernel",))}
+    tiles_call = timed(torch, tiles, sets)
+    log(f"B4 main W=8 ({card}), device ms: warp route {dev['warp']:.4f} "
+        f"(floor {dev['floor warp']:.4f}), tree_partial_kernel "
+        f"{dev['tiles']:.4f} (floor {dev['floor tiles']:.4f}; its call "
+        f"through route 0 of the same entry {tiles_call:.4f}, max abs err "
+        f"{err:.2e}); bound_ms {bound_ms:.4f} ({bound_by}: "
+        f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP over {nnz} mask "
+        f"entries); warp route {dev['warp'] / bound_ms:.1f}x the bound, "
+        f"{dev['warp'] / dev['floor warp']:.2f}x its floor")
+
+    # ---- one call's host time, piece by piece, in alternating windows
+    ptrs = launch.pointers(sets[0], 3)
+    _, out = plan.outputs()
+    counter = launch.Counted(lambda: None)
+    lib_sets = [lse_inputs(torch, dict(zip(("q", "k_new", "v_new",
+                                            "tree_mask"), a)), cache=False)
+                for a in sets]
+
+    def library(i):
+        a = lib_sets[i % 4]
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            a[0], a[1], a[2], a[3], True)
+
+    pieces = {
+        "plan and checks": lambda i: (tp.PARTIAL_PLANS.get(*sets[i % 4]),
+                                      launch.pointers(sets[i % 4], 3)),
+        "outputs": lambda i: plan.outputs(),
+        "stream and device": lambda i: (
+            torch._C._cuda_getCurrentRawStream(index),
+            torch._C._cuda_getDevice()),
+        "ctypes": lambda i: lib.tree_partial_launch(plan.ref, *ptrs, out,
+                                                    stream()),
+        "count": lambda i: counter.count_launch(),
+        "call": lambda i: tp.sparse_tree_attention_partial(*sets[i % 4]),
+        "library call": library,
+    }
+    host = dict(zip(pieces, alternating_ms(torch, list(pieces.values()))))
+    host["other"] = host["call"] - sum(
+        host[k] for k in ("plan and checks", "outputs", "stream and device",
+                          "ctypes", "count"))
+    log(f"B4 host ms per call, main W=8 ({card}; host clock, median of 7 "
+        f"windows of 100 calls, the pieces' windows in turns): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    del sets
+    return dict(device=dev, tiles_kernel_ms=tiles_call, tiles_err=err,
+                bound_ms=bound_ms, bound_by=bound_by, host=host)
 
 
 def lse_inputs(torch, a, cache):
@@ -1726,6 +1919,7 @@ def main():
     tree = phase_tree_timing(torch, np, card)
     waves = phase_waves(torch, np, card)
     tree_rows = phase_tree_rows(torch, np, card)
+    partial = phase_partial(torch, np, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
     t, d = timing["verify W=8"], timing["decode W=1"]
     b2, b2d = paged["B2 bfloat16 pool W=8"], paged["B2 bfloat16 pool W=1"]
@@ -1778,8 +1972,25 @@ def main():
                            if "cache_flash" in k}),
         kernel_entry("sparse_tree_attention_partial", launches,
                      max(paged_err["sparse_tree_attention_partial"],
-                         tree_err["sparse_tree_attention_partial"]),
-                     paged["B4 W=8"], card),
+                         tree_err["sparse_tree_attention_partial"],
+                         partial["tiles_err"]),
+                     paged["B4 W=8"], card,
+                     floor_ms=partial["device"]["floor warp"],
+                     routes={
+                         "warp": dict(
+                             kernel="tree_warp_kernel",
+                             takes="W <= 64 and head_dim <= 128",
+                             device_ms=partial["device"]["warp"],
+                             floor_ms=partial["device"]["floor warp"]),
+                         "tiles": dict(
+                             kernel="tree_partial_kernel",
+                             takes="W > 64 or head_dim > 128",
+                             device_ms=partial["device"]["tiles"],
+                             floor_ms=partial["device"]["floor tiles"],
+                             kernel_ms=partial["tiles_kernel_ms"])},
+                     host=partial["host"],
+                     sass={k: v for k, v in sass.items()
+                           if "tree_warp" in k}),
         kernel_entry("sparse_tree_attention", launches,
                      tree_err["sparse_tree_attention"],
                      tree["B5 fig10b float32"], card,
@@ -1795,7 +2006,7 @@ def main():
                      w8_bound_ms=tree["B5 main W=8"]["bound_ms"],
                      rows=tree_rows,
                      sass={k: v for k, v in sass.items()
-                           if k.startswith("tree")},
+                           if "tree_norm" in k},
                      fig10b=study),
     ]
     steps = {label: r["stats"]["device_steps"] for label, r in served.items()}

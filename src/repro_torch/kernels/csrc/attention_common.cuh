@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace attn {
 
 constexpr float kNegInf = -1e30f;
@@ -278,6 +280,43 @@ __device__ inline void store_partials(const Smem& s, float* o, float* m,
     m[idx] = fmaxf(s.m[lr], kNegInf * 0.5f);
     l[idx] = s.l[lr];
   }
+}
+
+// ---------------------------------------------------------------- host
+// The dynamic shared memory a kernel instance may use, raised with
+// cudaFuncSetAttribute once per instance and device, to the most the device
+// lets a block opt into less the instance's static shared memory: `attr`
+// (one static per instance) records that it was done on each device, and a
+// later launch sets nothing.  The value is the same on every call, so two
+// threads that both set it leave the same attribute in either order; a
+// launch asking for more than the device allows fails at the launch.  The
+// attribute is a cap, not a reservation: a launch still occupies only the
+// shared memory it asks for.
+constexpr int kMaxDevices = 16;
+
+struct SmemAttr {
+  std::atomic<bool> set[kMaxDevices] = {};
+};
+
+inline cudaError_t raise_smem(const void* kernel, SmemAttr& attr) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && attr.set[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      optin - static_cast<int>(fa.sharedSizeBytes));
+  if (err == cudaSuccess && dev < kMaxDevices)
+    attr.set[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 }  // namespace attn

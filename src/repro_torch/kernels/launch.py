@@ -2,13 +2,15 @@
 pick the key tile and the query-row tile that fit a block's shared memory,
 pick the split over the cache of the split walks (B1, B2, and B3 with no
 tree part) and lay out their partials' workspace, check the operands'
-device, layout and alignment, and launch on PyTorch's current stream,
-raising on a CUDA error (a refused launch never runs, so
-``torch.cuda.synchronize`` would not report it).
+device, layout and alignment, keep a launch plan per call signature
+(``Plans``, with the per-call checks in ``pointers``), and launch on
+PyTorch's current stream, raising on a CUDA error (a refused launch never
+runs, so ``torch.cuda.synchronize`` would not report it).
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 import threading
 from typing import Dict, Tuple
@@ -30,15 +32,24 @@ class Counted:
 
     ``launches`` reads and sets the count (a run sets it to 0, then reads
     how often its path launched the kernel); ``launch`` below adds one
-    after each launch that succeeded, and nothing else does.  The count
-    takes a lock: the serving plane launches kernels from one worker
-    thread per replica, and ``+=`` on a plain attribute can lose counts
-    between threads."""
+    after each launch that succeeded, and nothing else does.  The serving
+    plane launches kernels from one worker thread per replica, and ``+=``
+    on a plain attribute can lose counts between threads; so a launch
+    (``count_launch``) draws the next number of one ``itertools.count`` (a
+    single call into C, which no other thread interrupts) instead of
+    taking a lock.  Reads and sets draw too, under a lock among
+    themselves: a set records the number it drew, a read takes away that
+    number and the reads since."""
 
     def __init__(self, fn):
         functools.update_wrapper(self, fn)
         self._lock = threading.Lock()
-        self._launches = 0
+        self._ticks = itertools.count()
+        self._base = 0        # the draw a set made, + 1, - the count it set
+        self._reads = 0       # reads since that set
+        # adds one launch: the count's own ``__next__``, a call into C with
+        # no Python frame
+        self.count_launch = self._ticks.__next__
 
     def __call__(self, *args, **kwargs):
         return self.__wrapped__(*args, **kwargs)
@@ -46,16 +57,15 @@ class Counted:
     @property
     def launches(self) -> int:
         with self._lock:
-            return self._launches
+            n = next(self._ticks) - self._base - self._reads
+            self._reads += 1
+            return n
 
     @launches.setter
     def launches(self, n: int) -> None:
         with self._lock:
-            self._launches = int(n)
-
-    def count_launch(self) -> None:
-        with self._lock:
-            self._launches += 1
+            self._base = next(self._ticks) + 1 - int(n)
+            self._reads = 0
 
 
 def _max_rows(smem_bytes, W, hd, tile, GW):
@@ -239,12 +249,58 @@ def check_common(q, tensors, vectors):
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}, found "
                              f"{t.device}")
+    pointers(tensors, 0)
+    pointers(vectors, len(vectors))
+
+
+def signature(tensors):
+    """What a launch plan depends on: every operand's shape, dtype and
+    device index (-1 on the CPU)."""
+    return tuple([(t.shape, t.dtype, t.get_device()) for t in tensors])
+
+
+class Plans:
+    """One wrapper's launch plans, one per call signature (``signature``:
+    every operand's shape, dtype and device).  ``get(*operands)`` makes a
+    signature's plan on its first call with ``make(*operands)``, which
+    checks everything the signature fixes and raises on a bad one (nothing
+    is kept then), and looks it up on later calls, so a call does not
+    rebuild and compare shape tuples.  The key is the whole signature, so
+    a plan is never handed to another one.  What the signature does not
+    fix, whether each operand is contiguous and aligned (a view of the same
+    shape and dtype may be neither), is for ``pointers`` on every call.
+    Two threads may make one signature's plan at once; the first stored is
+    kept."""
+
+    def __init__(self, make):
+        self._make = make
+        self._plans = {}
+
+    def get(self, *operands):
+        key = signature(operands)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans.setdefault(key, self._make(*operands))
+        return plan
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+
+def pointers(tensors, vectors):
+    """Each operand's ``data_ptr``; raises unless every operand is
+    contiguous and the first ``vectors`` (the vector-loaded ones) are
+    16-byte aligned."""
+    out = []
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the kernel needs contiguous operands")
-    for t in vectors:
-        if t.data_ptr() % 16:
+        out.append(t.data_ptr())
+    for p in out[:vectors]:
+        if p % 16:
             raise ValueError("vector-loaded operands must be 16-byte "
                              "aligned")
+    return out
 
 
 def launch(wrapper: Counted, fn, error_string, device, *args):
@@ -252,13 +308,15 @@ def launch(wrapper: Counted, fn, error_string, device, *args):
     stream; raise with the CUDA error's text if it returns one, else count
     one launch of ``wrapper``.  The stream is read as its raw handle (no
     ``torch.cuda.Stream`` object is built per call), and the device is
-    switched only when it is not the calling thread's current one: both
-    are host time on every kernel call of a host-bound serve."""
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    if torch.cuda.current_device() == device.index:
+    switched only when it is not the calling thread's current one (read
+    from the binding, not through ``torch.cuda.current_device``): both are
+    host time on every kernel call of a host-bound serve."""
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if torch._C._cuda_getDevice() == index:
         err = fn(*args, stream)
     else:
-        with torch.cuda.device(device):
+        with torch.cuda.device(index):
             err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "

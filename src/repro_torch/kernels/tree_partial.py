@@ -10,6 +10,16 @@ exact arguments.  A CPU tensor runs the plain version; a CUDA tensor
 launches the kernel or raises.  Each wrapper's ``.launches`` counts its
 kernel's launches and nothing else.
 
+B4 has two routes (``partial_route``; ``csrc/tree_partial.cu`` states the
+same rule): ``tree_warp_kernel`` (one warp per 8 query rows, all W keys in
+one pass) for W <= 64 and head_dim <= 128, in fp32 and bf16, and
+``tree_partial_kernel`` otherwise (a W=256 prefill piece, head_dim > 128).
+Its call is built for the host's time: a plan per call signature
+(``launch.Plans``: the shape, dtype and device checks and the route run
+once per signature, the C plan is packed once), the contiguity and
+alignment checks on every call (``launch.pointers``), one allocation for
+the three partials, and a C call of 7 pointers.
+
 B5 has three routes (``norm_route``; ``csrc/tree_partial.cu`` states the
 same rule): bf16 at head_dim <= 128 on the tensor cores, fp32 with W <= 64
 and head_dim <= 128 in one exact fp32 pass on the CUDA cores, and B4's
@@ -25,8 +35,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import (FLASH_HD_MAX, Counted,
-                                        check_common, launch, pick_tiles)
+from repro_torch.kernels.launch import (FLASH_HD_MAX, Counted, Plans,
+                                        check_common, launch, pick_tiles,
+                                        pointers)
 from repro_torch.kernels.plain import (sparse_tree_attention_partial_plain,
                                        sparse_tree_attention_plain)
 
@@ -40,8 +51,11 @@ def _bind():
     """Build (first use) and load the library, and declare every C
     signature: pointers and the stream as ``c_void_p``."""
     lib = build.load("tree_partial")
-    f = lib.sparse_tree_attention_partial
-    f.argtypes = [_I] + [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
+    f = lib.tree_partial_launch
+    f.argtypes = [_P] * 7
+    f.restype = _I
+    f = lib.tree_partial_floor
+    f.argtypes = [_P] * 2
     f.restype = _I
     f = lib.sparse_tree_attention
     f.argtypes = [_I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
@@ -81,6 +95,77 @@ def _check(q, k_new, v_new, tree_mask):
     return B, W, Hq, Hkv, hd
 
 
+# B4's routes (the codes of csrc/tree_partial.cu::partial_route)
+PARTIAL_TILES, PARTIAL_WARP = 0, 1
+WARP_KEYS = 64              # the warp route's keys a row, in one pass
+WARP_ROWS = 8               # query rows a block of it (two a warp)
+
+
+def partial_route(W, hd) -> int:
+    """B4's route: ``tree_warp_kernel`` with all W keys in one pass for
+    W <= 64 and head_dim <= 128 (fp32 or bf16), else
+    ``tree_partial_kernel``."""
+    return PARTIAL_WARP if W <= WARP_KEYS and hd <= FLASH_HD_MAX \
+        else PARTIAL_TILES
+
+
+class _TreePlan(ctypes.Structure):
+    """``csrc/tree_partial.cu::TreePlan``, field by field."""
+    _fields_ = [("route", _I), ("q_dtype", _I), ("B", _I), ("W", _I),
+                ("Hq", _I), ("Hkv", _I), ("hd", _I), ("tile", _I),
+                ("rows", _I), ("scale", ctypes.c_float)]
+
+
+class PartialPlan:
+    """One call signature's B4 launch: the packed C plan (kept alive here,
+    passed by its address ``ref``), the device, and the partials' layout
+    in one fp32 allocation: o (B, W, Hq, hd), then m and l (B, Hq, W), the
+    ``cm.merge_partials`` layout, which the C entry point derives from the
+    buffer's address and the plan."""
+
+    def __init__(self, c_plan, device):
+        B, W, Hq, hd = c_plan.B, c_plan.W, c_plan.Hq, c_plan.hd
+        self.c_plan = c_plan
+        self.ref = ctypes.addressof(c_plan)
+        self.device = device
+        self.n_o, self.n_m = B * W * Hq * hd, B * Hq * W
+        self.n = self.n_o + 2 * self.n_m
+        self.o_layout = (B, W, Hq, hd), (W * Hq * hd, Hq * hd, hd, 1)
+        self.ml_layout = (B, Hq, W), (Hq * W, W, 1)
+        # an empty fp32 tensor on the device: ``new_empty`` takes the dtype
+        # and device from it, with no keyword to parse on each call
+        self._like = torch.empty(0, dtype=torch.float32, device=device)
+
+    @property
+    def route(self) -> int:
+        return self.c_plan.route
+
+    def outputs(self):
+        """``((o, m, l), the buffer's address)``: three views of one
+        allocation (from the current stream's pool)."""
+        buf = self._like.new_empty(self.n)
+        return ((buf.as_strided(*self.o_layout, 0),
+                 buf.as_strided(*self.ml_layout, self.n_o),
+                 buf.as_strided(*self.ml_layout, self.n_o + self.n_m)),
+                buf.data_ptr())
+
+
+def _partial_plan(q, k_new, v_new, tree_mask):
+    """A signature's plan: every check of ``_check``, the route, and
+    route 0's key tile and rows from the library's shared-memory count."""
+    B, W, Hq, Hkv, hd = _check(q, k_new, v_new, tree_mask)
+    route = partial_route(W, hd)
+    tile = rows = 0
+    if route == PARTIAL_TILES:
+        tile, rows = pick_tiles(_bind().tree_partial_smem_bytes,
+                                Hq // Hkv * W, W, hd)
+    return PartialPlan(_TreePlan(route, _Q_CODES[q.dtype], B, W, Hq, Hkv,
+                                 hd, tile, rows, hd ** -0.5), q.device)
+
+
+PARTIAL_PLANS = Plans(_partial_plan)
+
+
 # B5's routes (the codes of csrc/tree_partial.cu::norm_route)
 ROUTE_TILES, ROUTE_FLASH, ROUTE_F32 = 0, 1, 2
 F32_KEYS = 64               # the fp32 route's one key tile
@@ -115,23 +200,6 @@ def norm_rows(route, B, Hkv, GW) -> int:
     return choices[-1]
 
 
-def _launch(wrapper, q, k_new, v_new, tree_mask, outs, route=None):
-    """Check the operands and launch ``wrapper``'s entry point writing
-    ``outs``; B5 passes its route, the key tile and its rows."""
-    B, W, Hq, Hkv, hd = _check(q, k_new, v_new, tree_mask)
-    lib = _bind()
-    GW = Hq // Hkv * W
-    if route in NORM_ROWS:
-        tile, rows = 0, norm_rows(route, B, Hkv, GW)
-    else:
-        tile, rows = pick_tiles(lib.tree_partial_smem_bytes, GW, W, hd)
-    plan = (tile, rows) if route is None else (route, tile, rows)
-    launch(wrapper, getattr(lib, wrapper.__name__),
-           lib.tree_partial_error_string, q.device, _Q_CODES[q.dtype],
-           *(t.data_ptr() for t in (q, k_new, v_new, tree_mask) + outs),
-           B, W, Hq, Hkv, hd, *plan, hd ** -0.5)
-
-
 def _on_cuda(name, q):
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
@@ -141,17 +209,18 @@ def _on_cuda(name, q):
 def sparse_tree_attention_partial(q, k_new, v_new, tree_mask):
     """See ``sparse_tree_attention_partial_plain``: returns the unnormalized
     ``(o, m, l)`` partials of the W x W tree attention."""
-    if q.device.type == "cpu":
-        return sparse_tree_attention_partial_plain(q, k_new, v_new,
-                                                   tree_mask)
-    _on_cuda("sparse_tree_attention_partial", q)
-    B, W, Hq = q.shape[:3]
-    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, Hq, W), dtype=torch.float32, device=q.device)
-    _launch(sparse_tree_attention_partial, q, k_new, v_new, tree_mask,
-            (o, m, l))
-    return o, m, l
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return sparse_tree_attention_partial_plain(q, k_new, v_new,
+                                                       tree_mask)
+        _on_cuda("sparse_tree_attention_partial", q)
+    plan = PARTIAL_PLANS.get(q, k_new, v_new, tree_mask)
+    ptrs = pointers((q, k_new, v_new, tree_mask), 3)
+    outs, out = plan.outputs()
+    lib = _bind()
+    launch(sparse_tree_attention_partial, lib.tree_partial_launch,
+           lib.tree_partial_error_string, plan.device, plan.ref, *ptrs, out)
+    return outs
 
 
 @Counted
@@ -161,7 +230,17 @@ def sparse_tree_attention(q, k_new, v_new, tree_mask):
     if q.device.type == "cpu":
         return sparse_tree_attention_plain(q, k_new, v_new, tree_mask)
     _on_cuda("sparse_tree_attention", q)
+    B, W, Hq, Hkv, hd = _check(q, k_new, v_new, tree_mask)
+    lib = _bind()
+    route = norm_route(q.dtype, W, hd)
+    GW = Hq // Hkv * W
+    if route in NORM_ROWS:
+        tile, rows = 0, norm_rows(route, B, Hkv, GW)
+    else:
+        tile, rows = pick_tiles(lib.tree_partial_smem_bytes, GW, W, hd)
     out = torch.empty_like(q)
-    _launch(sparse_tree_attention, q, k_new, v_new, tree_mask, (out,),
-            route=norm_route(q.dtype, q.shape[1], q.shape[3]))
+    launch(sparse_tree_attention, lib.sparse_tree_attention,
+           lib.tree_partial_error_string, q.device, _Q_CODES[q.dtype],
+           *(t.data_ptr() for t in (q, k_new, v_new, tree_mask, out)),
+           B, W, Hq, Hkv, hd, route, tile, rows, hd ** -0.5)
     return out

@@ -15,6 +15,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import plain  # noqa: E402
 from repro_torch.kernels import tree_partial as tp  # noqa: E402
 from repro_torch.kernels.verify_attention import verify_attention  # noqa: E402
 
@@ -93,16 +94,18 @@ def test_paged_cuda_calls_launch_or_raise():
 @pytest.mark.gpu
 def test_tree_kernels_match_plain_on_card():
     """The normalized tree kernel (B5) and the tree partial (B4) over the
-    reference's sparse sweep, the Fig. 10b shape and the main path's W=8;
-    the dense verify (B1) and the page walk (B2) at a W=256 chain (four
-    row tiles).  Each call is one launch of its kernel."""
+    reference's sparse sweep, the Fig. 10b shape and the main path's W=8,
+    B4 over its route edges (chip_smoke.PARTIAL_EDGE); the dense verify
+    (B1) and the page walk (B2) at a W=256 chain (four row tiles).  Each
+    call is one launch of its kernel."""
     _need_gpu()
     wrappers = (tp.sparse_tree_attention, tp.sparse_tree_attention_partial,
                 verify_attention, pa.paged_tree_attention)
     before = [w.launches for w in wrappers]
     worst = chip_smoke.phase_sparse_kernel_check(torch, np)
     n = len(chip_smoke.sparse_case_list(np))
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [n, n, 1, 1]
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        n, n + len(chip_smoke.PARTIAL_EDGE), 1, 1]
     assert max(worst.values()) < 2e-2
 
 
@@ -172,12 +175,54 @@ def test_norm_tree_routes_match_plain_on_card():
 @pytest.mark.gpu
 def test_tensor_core_instances_use_mma_and_cp_async():
     """The bf16 instances of B1, of B2 and B3 over a bf16 and an int8 pool
-    and of B5 hold HMMA and LDGSTS instructions."""
+    and of B5 hold HMMA and LDGSTS instructions; the eight instances of
+    B4's warp route hold LDGSTS and FFMA and no HMMA."""
     _need_gpu()
     from repro_torch.kernels import build
     build.build()
-    counts = chip_smoke.sass_counts(build)
+    sass = chip_smoke.sass_counts(build)
+    counts = {k: v for k, v in sass.items() if "flash_kernel" in k}
     assert len(counts) == chip_smoke.TENSOR_CORE_INSTANCES == 6
     assert sum("cache_flash_kernel" in k for k in counts) == 2
     assert sum("tree_norm_flash_kernel" in k for k in counts) == 1
     assert all(v["HMMA"] > 0 and v["LDGSTS"] > 0 for v in counts.values())
+    warp = {k: v for k, v in sass.items() if "tree_warp_kernel" in k}
+    assert len(warp) == chip_smoke.WARP_INSTANCES == 8
+    assert len(sass) == len(counts) + len(warp)
+    assert all(v["HMMA"] == 0 and v["LDGSTS"] > 0 and v["FFMA"] > 0
+               for v in warp.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [8, 1, 16, 32, 64])
+def test_tree_partial_warp_route_on_card(W):
+    """B4's warp route equals its plain version at the main path's shape
+    (B=4, Hq=Hkv=32, hd=128, bf16) with W = 8 (the serve's tree) and at
+    W = 1, 16, 32 and 64 (each key-slot width of the route); each call is one launch; a misaligned or
+    non-contiguous operand raises on CUDA and launches nothing."""
+    _need_gpu()
+    tree = chip_smoke.main_path_tree(np)[0][0] if W == 8 else \
+        chip_smoke.rand_tree(np, W, seed=W)[0]
+    args = chip_smoke.sparse_inputs(torch, np, B=4, W=W, Hq=32, Hkv=32,
+                                    hd=128, dtype="bfloat16", mask=tree,
+                                    seed=W)
+    assert tp.PARTIAL_PLANS.get(*args).route == tp.PARTIAL_WARP
+    n = tp.sparse_tree_attention_partial.launches
+    got = tp.sparse_tree_attention_partial(*args)
+    assert tp.sparse_tree_attention_partial.launches == n + 1
+    got = tp.sparse_tree_attention_partial(*args)
+    assert tp.sparse_tree_attention_partial.launches == n + 2
+    want = plain.sparse_tree_attention_partial_plain(*args)
+    torch.cuda.synchronize()
+    assert chip_smoke._hold(torch, "sparse_tree_attention_partial",
+                            f"W={W}", got, want, 2e-2) < 2e-2
+    q = args[0]
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:]
+    misaligned = flat.view(q.shape)
+    misaligned.copy_(q)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous()
+    for bad in (misaligned, strided):
+        with pytest.raises(ValueError):
+            tp.sparse_tree_attention_partial(bad, *args[1:])
+    assert tp.sparse_tree_attention_partial.launches == n + 2
