@@ -46,7 +46,19 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    just after: each forward of a run must go through its kernel
    (``launches == layers x (steps + prefill pieces)``; at least one in
    (g)) and through no other attention kernel.  Check the tokens, the
-   logits and the page pools, and report how far the runs agree.
+   logits and the page pools, and report how far the runs agree.  Every
+   run takes the deployed path, the compiled chunk (one decode step
+   captured in a CUDA graph and replayed; the counts come through the
+   replays' tallies), and must replay its captured steps; the six
+   fixed-batch runs and (e) run again op by op inside ``eager()``, with
+   the same gates, and their tokens must equal the graphed run's exactly
+   (on a mismatch the first divergent token and its eager logit margin
+   are reported).  Print each run's tok/s and step ms on both paths and
+   its graphs (captured, steps replayed, capture seconds, pool bytes).
+   Time ``DecodeEngine.time_step`` for dense ghidorah and sequential at
+   B=4 on both paths, and profile each fixed-batch run and (e) on both
+   paths (``launch/profile_serve.py``: idle share, device time by class;
+   the profiler must see the replays' kernels).
 5. Drive the Fig. 10b study's path (the normalized tree kernel through its
    public entry point) with the counts set to 0 before it, and print the
    study's FLOP terms.  Time each kernel at the main path's shapes, the
@@ -72,6 +84,7 @@ Without a GPU, or outside a checkout, it fails and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -920,6 +933,7 @@ def argv(mode):
 
 def phase_serve(torch, np):
     from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
 
     t0 = time.perf_counter()
     loaded = serve.load(serve.parse_args(argv("ghidorah")), with_heads=True)
@@ -936,35 +950,109 @@ def phase_serve(torch, np):
     results = {}
     launches = dict.fromkeys(wrappers, 0)
     for label, (mode, flags, kernels) in SERVE_RUNS.items():
-        for fn in wrappers.values():          # counts from here: main path
-            fn.launches = 0
-        res = serve.run(serve.parse_args(argv(mode) + flags), loaded)
-        torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        stats = res["stats"]
-        steps = stats["device_steps"]
-        want = cfg.num_layers * steps
-        step_ms = 1e3 * sum(stats["step_times"]) / max(steps, 1)
-        log(f"{label} ({' '.join(flags) or 'dense cache'}): "
-            f"{stats['emitted_total']} tokens, "
-            f"{stats['emitted_total'] / res['seconds']:.1f} tok/s, "
-            f"{steps} steps, mean step {step_ms:.2f} ms, acceptance length "
-            f"{stats['acceptance_length']:.3f}, kernel launches {counts} "
-            f"(want {want} = {cfg.num_layers} layers x {steps} steps for "
-            f"{', '.join(kernels)}, 0 for the others)")
-        if stats["emitted_total"] != MAIN["batch"] * MAIN["tokens"]:
-            raise SmokeError(f"{label} emitted {stats['emitted_total']} "
-                             f"tokens, expected "
-                             f"{MAIN['batch'] * MAIN['tokens']}")
-        for name, got in counts.items():
-            if got != (want if name in kernels else 0) or \
-                    (name in kernels and got == 0):
-                raise SmokeError(f"{label}: {got} {name} launches, expected "
-                                 f"{want if name in kernels else 0}")
-            launches[name] += got
-        results[label] = dict(res, step_ms=step_ms, counts=counts)
+        args = serve.parse_args(argv(mode) + flags)
+        runs = {}
+        for path in ("graphed", "eager"):
+            for fn in wrappers.values():      # counts from here: main path
+                fn.launches = 0
+            with (eager() if path == "eager" else contextlib.nullcontext()):
+                res = serve.run(args, loaded)
+            torch.cuda.synchronize()
+            counts = {name: fn.launches for name, fn in wrappers.items()}
+            stats = res["stats"]
+            steps = stats["device_steps"]
+            want = cfg.num_layers * steps
+            step_ms = 1e3 * sum(stats["step_times"]) / max(steps, 1)
+            graphs = graph_summary(res["engines"])
+            log(f"{label} ({' '.join(flags) or 'dense cache'}), {path}: "
+                f"{stats['emitted_total']} tokens, "
+                f"{stats['emitted_total'] / res['seconds']:.1f} tok/s, "
+                f"{steps} steps, mean step {step_ms:.2f} ms, acceptance "
+                f"length {stats['acceptance_length']:.3f}, kernel launches "
+                f"{counts} (want {want} = {cfg.num_layers} layers x {steps} "
+                f"steps for {', '.join(kernels)}, 0 for the others)")
+            if stats["emitted_total"] != MAIN["batch"] * MAIN["tokens"]:
+                raise SmokeError(f"{label} ({path}) emitted "
+                                 f"{stats['emitted_total']} tokens, expected "
+                                 f"{MAIN['batch'] * MAIN['tokens']}")
+            for name, got in counts.items():
+                if got != (want if name in kernels else 0) or \
+                        (name in kernels and got == 0):
+                    raise SmokeError(f"{label} ({path}): {got} {name} "
+                                     f"launches, expected "
+                                     f"{want if name in kernels else 0}")
+                if path == "graphed":
+                    launches[name] += got
+            check_graphs(label, path, graphs, steps)
+            runs[path] = dict(res, step_ms=step_ms, counts=counts,
+                              graphs=graphs,
+                              tok_s=stats["emitted_total"] / res["seconds"],
+                              replay_step_ms=1e3 * stats["replay_s"]
+                              / max(stats["replay_steps"], 1))
+        g, e = runs["graphed"], runs["eager"]
+        log(f"{label}: graphed {g['tok_s']:.1f} tok/s, step "
+            f"{g['step_ms']:.2f} ms (replayed chunks "
+            f"{g['replay_step_ms']:.2f} ms a step over "
+            f"{g['stats']['replay_steps']} steps), {_graphs_text(g)}; "
+            f"eager {e['tok_s']:.1f} tok/s, step {e['step_ms']:.2f} ms")
+        for row in range(e["out"].shape[0]):
+            bad = divergence(torch, np, loaded, e["prompts"][row],
+                             e["out"][row], g["out"][row])
+            if bad is not None:
+                raise SmokeError(f"{label}: graphed tokens differ from the "
+                                 f"eager ones: row {row}, first at index "
+                                 f"{bad[0]} (eager logit margin {bad[1]:.4f})")
+        results[label] = dict(g, eager=e)
+    log("every fixed-batch run's graphed tokens equal its eager tokens")
     check_outputs(torch, np, loaded, results)
     return launches, results, loaded
+
+
+def graph_summary(engines):
+    """The chunk graphs' counters, summed over a run's engines."""
+    out = dict(captures=0, replays=0, warmup_steps=0, capture_s=0.0,
+               pool_bytes=0)
+    for eng in engines:
+        for k in out:
+            out[k] += eng.graph_stats[k]
+    return out
+
+
+def _graphs_text(run):
+    g = run["graphs"]
+    return (f"{g['captures']} graphs captured in {g['capture_s']:.3f}s, "
+            f"{g['replays']} steps replayed, {g['warmup_steps']} warm-up "
+            f"steps, pool {g['pool_bytes'] / 2 ** 20:.1f} MiB")
+
+
+def check_graphs(label, path, graphs, steps):
+    """The graphed run must replay captured steps (every step after each
+    key's warm-up chunk); the eager run must capture none."""
+    if path == "eager":
+        if graphs["captures"] or graphs["replays"]:
+            raise SmokeError(f"{label} (eager): {graphs} graphs/replays")
+    elif not graphs["captures"] or not graphs["replays"] or \
+            graphs["replays"] + graphs["warmup_steps"] != steps:
+        raise SmokeError(f"{label}: {graphs} for {steps} decode steps: "
+                         f"not every step past the warm-up replayed a graph")
+
+
+def divergence(torch, np, loaded, prompt, ref, other):
+    """None if the streams agree; else (index of the first token where
+    ``other`` leaves ``ref``, the logit margin there of ``ref``'s token
+    over ``other``'s, teacher-forced on prompt + ``ref``)."""
+    diff = np.nonzero(np.asarray(ref) != np.asarray(other))[0]
+    if not diff.size:
+        return None
+    i = int(diff[0])
+    seq = np.concatenate([prompt, ref[:i]])[None]
+    with torch.no_grad():
+        logits, _, _ = loaded.model.prefill(
+            loaded.params, {"tokens": torch.as_tensor(seq,
+                                                      device=loaded.device)},
+            return_cache=False)
+    last = logits[0, -1].float()
+    return i, float(last[int(ref[i])] - last[int(other[i])])
 
 
 def reset_counts():
@@ -1041,8 +1129,136 @@ def phase_replay(torch, np, loaded, launches):
                 raise SmokeError(f"{label}: {pieces} prefill pieces, "
                                  f"expected {want_pieces} (> 0 for (e))")
             forced_finite(torch, np, loaded, res)
-        out[label] = dict(res, counts=counts, wall=wall)
+        graphs = graph_summary(res["engines"])
+        if not graphs["captures"] or not graphs["replays"]:
+            raise SmokeError(f"{label}: no captured step replayed "
+                             f"({graphs})")
+        log(f"{label}: {stats['tok_s']:.1f} tok/s, "
+            f"{_graphs_text(dict(graphs=graphs))}")
+        out[label] = dict(res, counts=counts, wall=wall, graphs=graphs)
+        if label in EAGER_REPLAYS:
+            out[label]["eager"] = eager_replay(torch, np, loaded, args,
+                                               label, res)
     solo_agreement(np, loaded, out)
+    return out
+
+
+# the replays run a second time op by op (``eager()``), their tokens held
+# equal to the graphed run's
+EAGER_REPLAYS = ("(e) continuous",)
+
+
+def eager_replay(torch, np, loaded, args, label, res):
+    """Replay ``args`` again inside ``eager()``: the same gates on its
+    counts, and every request's tokens equal the graphed run's."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
+    cfg = loaded.cfg
+    reset_counts()
+    t0 = time.perf_counter()
+    with eager():
+        ref = serve.run(args, loaded)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    stats = ref["stats"]
+    want = cfg.num_layers * (stats["device_steps"]
+                             + stats.get("extend_pieces", 0))
+    if counts["paged_tree_attention"] != want or \
+            sum(counts.values()) != want:
+        raise SmokeError(f"{label} (eager): launches {counts}, expected "
+                         f"{want} paged_tree_attention")
+    check_graphs(label, "eager", graph_summary(ref["engines"]), 0)
+    prompts = {q.req_id: q.tokens for q in ref["requests"]}
+    for g, e in zip(res["results"], ref["results"]):
+        if g.req_id != e.req_id or g.state != e.state:
+            raise SmokeError(f"{label}: graphed request {g.req_id} "
+                             f"{g.state}, eager {e.req_id} {e.state}")
+        bad = divergence(torch, np, loaded, prompts[e.req_id], e.tokens,
+                         g.tokens)
+        if bad is not None or len(g.tokens) != len(e.tokens):
+            raise SmokeError(f"{label}: request {g.req_id}'s graphed tokens "
+                             f"differ from the eager ones (first at, eager "
+                             f"logit margin: {bad})")
+    log(f"{label} (eager): {_replay_summary(stats)}; wall {wall:.2f}s; "
+        f"kernel launches {counts}; every request's graphed tokens equal "
+        f"its eager tokens")
+    return dict(ref, counts=counts, wall=wall)
+
+
+def phase_time_step(torch, loaded, card):
+    """``DecodeEngine.time_step`` (ARCA's time source: best of 5 chunks of
+    8 steps on a dummy prompt of the main path's length, per step) for
+    dense ghidorah (W=8) and sequential at B=4, through the deployed
+    chunk (the replay) and inside ``eager()``."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
+    out = {}
+    for mode in ("ghidorah", "sequential"):
+        eng = serve.build_engine(serve.parse_args(argv(mode)), loaded)
+        kw = dict(batch=MAIN["batch"], prompt_len=MAIN["prompt_len"],
+                  reps=5)
+        graphed = eng.time_step(**kw)
+        with eager():
+            op_by_op = eng.time_step(**kw)
+        torch.cuda.synchronize()
+        out[mode] = dict(graphed_ms=1e3 * graphed, eager_ms=1e3 * op_by_op,
+                         graphs=eng.graph_stats)
+        log(f"time_step {mode} (W={eng.strategy.width}, B={MAIN['batch']}, "
+            f"prompt {MAIN['prompt_len']}; {card}): replayed step "
+            f"{1e3 * graphed:.3f} ms, eager step {1e3 * op_by_op:.3f} ms")
+        if not (0 < graphed < float("inf")) or \
+                not eng.graph_stats["replays"]:
+            raise SmokeError(f"time_step {mode}: {graphed} s, "
+                             f"{eng.graph_stats}")
+        del eng
+    return out
+
+
+# the runs profiled in phase 4 (both paths): the fixed-batch runs and (e)
+PROFILED = list(SERVE_RUNS) + ["(e) continuous"]
+
+
+def phase_profile(torch, loaded, card):
+    """``launch/profile_serve.py`` over each profiled run, graphed and
+    eager: the idle share, device time by class and activities per step
+    of each path.  The profiler must see the replayed graphs' kernels (the
+    same ~2,500 a step run either way; a graph seen as one activity would
+    show ~1): the graphed path's device activities per decode step must
+    reach half the eager path's.  Not a tighter bound: an eager run's
+    trace can drop records (9% in one run on the H100)."""
+    from repro_torch.launch import profile_serve as ps
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
+    out = {}
+    for label in PROFILED:
+        if label in SERVE_RUNS:
+            mode, flags, _ = SERVE_RUNS[label]
+            args = serve.parse_args(argv(mode) + flags)
+        else:
+            args = serve.parse_args(argv("ghidorah") + REPLAY_FLAGS
+                                    + REPLAY_RUNS[label])
+        rows = {}
+        for path, ctx in (("graphed", contextlib.nullcontext),
+                          ("eager", eager)):
+            with ctx():
+                r = ps.profile_serve(args, loaded)
+            rows[path] = r
+            classes = ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                r["by_class"].items(), key=lambda kv: -kv[1]))
+            log(f"profile {label}, {path} ({card}): wall "
+                f"{r['wall_ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms, "
+                f"idle share {r['idle_share']:.3f}, "
+                f"{r['activities'] / max(r['steps'], 1):.0f} activities a "
+                f"step over {r['steps']} steps + {r['pieces']} pieces; "
+                f"graphs {r['graphs']}; device ms by class: {classes}")
+        a, b = (rows[p]["activities"] / max(rows[p]["steps"], 1)
+                for p in ("graphed", "eager"))
+        if a < 0.5 * b:
+            raise SmokeError(f"profile {label}: {a:.0f} device activities "
+                             f"a step graphed against {b:.0f} eager: the "
+                             f"profiler does not see the replays' kernels")
+        out[label] = rows
     return out
 
 
@@ -1559,7 +1775,7 @@ def phase_partial(torch, np, card):
             torch._C._cuda_getDevice()),
         "ctypes": lambda i: lib.tree_partial_launch(plan.ref, *ptrs, out,
                                                     stream()),
-        "count": lambda i: counter.count_launch(),
+        "count": lambda i: launch.count(counter),
         "call": lambda i: tp.sparse_tree_attention_partial(*sets[i % 4]),
         "library call": library,
     }
@@ -1910,6 +2126,9 @@ def main():
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
     launches, served, loaded = phase_serve(torch, np)
     replays = phase_replay(torch, np, loaded, launches)
+    log(f"serve runs done at {time.perf_counter() - t_start:.1f}s")
+    phase_time_step(torch, loaded, card)
+    phase_profile(torch, loaded, card)
     del loaded
     torch.cuda.empty_cache()
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f}s")

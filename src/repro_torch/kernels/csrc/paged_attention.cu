@@ -287,19 +287,20 @@ int run(const Ptrs& p, int B, int W, int Hq, int Hkv, int hd, int ps,
       if (tile != flash::kTile || rows != flash::kRows)
         return (int)cudaErrorInvalidValue;
       auto kernel = TREE ? &paged_flash_kernel<TP> : &cache_flash_kernel<TP>;
+      static SmemAttr attr;
       const size_t smem = flash::layout(hd).total;
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      err = raise_smem(reinterpret_cast<const void*>(kernel), attr);
       if (err != cudaSuccess) return (int)err;
       const dim3 grid(B * Hkv, (GW + flash::kRows - 1) / flash::kRows,
                       parts);
       kernel<<<grid, flash::kThreads, smem, stream>>>(a);
     }
   } else {
+    static SmemAttr attr;
     const size_t smem = smem_bytes(rows, W, hd, tile);
-    err = cudaFuncSetAttribute(paged_attention_kernel<TQ, TP, TREE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = raise_smem(
+        reinterpret_cast<const void*>(paged_attention_kernel<TQ, TP, TREE>),
+        attr);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * Hkv, (GW + rows - 1) / rows, parts);
     paged_attention_kernel<TQ, TP, TREE><<<grid, kThreads, smem, stream>>>(a);
@@ -355,13 +356,14 @@ int by_q(int q_dtype, int pool_dtype, const Ptrs& p, int B, int W, int Hq,
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of a tensor-core walk (bf16 pool) resident on one SM.
+// Blocks of a tensor-core walk (bf16 pool) resident on one SM; `attr` is
+// the kernel's own record of its raised shared-memory attribute.
 template <typename K>
-int blocks_per_sm(K kernel, int hd) {
+int blocks_per_sm(K kernel, SmemAttr& attr, int hd) {
   const int smem = (int)flash::layout(hd).total;
   int n = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess ||
+  if (raise_smem(reinterpret_cast<const void*>(kernel), attr) !=
+          cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, kernel, flash::kThreads, smem) != cudaSuccess)
     return -1;
@@ -385,12 +387,14 @@ size_t paged_attention_flash_smem_bytes(int hd) {
 // Blocks of the fused tensor-core walk resident on one SM (the occupancy
 // query; kernels/launch.py::split_plan sizes the split with it).
 int paged_attention_flash_blocks_per_sm(int hd) {
-  return blocks_per_sm(paged_flash_kernel<__nv_bfloat16>, hd);
+  static attn::SmemAttr attr;
+  return blocks_per_sm(paged_flash_kernel<__nv_bfloat16>, attr, hd);
 }
 
 // The same for the cache-only tensor-core walk.
 int paged_cache_flash_blocks_per_sm(int hd) {
-  return blocks_per_sm(cache_flash_kernel<__nv_bfloat16>, hd);
+  static attn::SmemAttr attr;
+  return blocks_per_sm(cache_flash_kernel<__nv_bfloat16>, attr, hd);
 }
 
 const char* paged_attention_error_string(int err) {

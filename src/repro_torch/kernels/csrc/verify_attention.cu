@@ -178,10 +178,10 @@ int launch(const Args<T>& a, cudaStream_t stream) {
       if (a.tile != flash::kTile || a.rows != flash::kRows ||
           a.parts != a.nsplit + (a.W > flash::kTile))
         return (int)cudaErrorInvalidValue;
+      static SmemAttr attr;
       const size_t smem = flash::layout(a.hd).total;
-      err = cudaFuncSetAttribute(verify_flash_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+      err = raise_smem(reinterpret_cast<const void*>(verify_flash_kernel),
+                       attr);
       if (err != cudaSuccess) return (int)err;
       const dim3 grid(a.B * a.Hkv, (GW + flash::kRows - 1) / flash::kRows,
                       a.parts);
@@ -189,10 +189,10 @@ int launch(const Args<T>& a, cudaStream_t stream) {
     }
   } else {
     if (a.parts != a.nsplit + 1) return (int)cudaErrorInvalidValue;
+    static SmemAttr attr;
     const size_t smem = smem_bytes(a.rows, a.W, a.hd, a.tile);
-    err = cudaFuncSetAttribute(verify_attention_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = raise_smem(reinterpret_cast<const void*>(verify_attention_kernel<T>),
+                     attr);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(a.B * a.Hkv, (GW + a.rows - 1) / a.rows, a.nsplit + 1);
     verify_attention_kernel<T><<<grid, kThreads, smem, stream>>>(a);
@@ -253,11 +253,11 @@ size_t verify_attention_flash_smem_bytes(int hd) {
 // Blocks of the tensor-core walk resident on one SM (the occupancy query;
 // kernels/launch.py::split_plan sizes the split with it).
 int verify_attention_flash_blocks_per_sm(int hd) {
+  static attn::SmemAttr attr;
   const int smem = (int)flash::layout(hd).total;
   int n = 0;
-  if (cudaFuncSetAttribute(verify_flash_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess ||
+  if (attn::raise_smem(reinterpret_cast<const void*>(verify_flash_kernel),
+                       attr) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, verify_flash_kernel, flash::kThreads, smem) != cudaSuccess)
     return -1;

@@ -6,6 +6,10 @@ device, layout and alignment, keep a launch plan per call signature
 (``Plans``, with the per-call checks in ``pointers``), and launch on
 PyTorch's current stream, raising on a CUDA error (a refused launch never
 runs, so ``torch.cuda.synchronize`` would not report it).
+
+Under CUDA-graph capture (``runtime/graphs.py``) a launch lands on the
+capturing stream and executes nothing; ``CaptureTally`` keeps its count
+for the graph, which adds it at every replay (``Counted.add_launches``).
 """
 from __future__ import annotations
 
@@ -32,14 +36,17 @@ class Counted:
 
     ``launches`` reads and sets the count (a run sets it to 0, then reads
     how often its path launched the kernel); ``launch`` below adds one
-    after each launch that succeeded, and nothing else does.  The serving
+    after each launch that succeeded (or, under a capture, gives it to the
+    graph's ``CaptureTally``), and a replay of a captured graph adds the
+    launches it holds (``add_launches``); nothing else counts.  The serving
     plane launches kernels from one worker thread per replica, and ``+=``
     on a plain attribute can lose counts between threads; so a launch
     (``count_launch``) draws the next number of one ``itertools.count`` (a
     single call into C, which no other thread interrupts) instead of
     taking a lock.  Reads and sets draw too, under a lock among
     themselves: a set records the number it drew, a read takes away that
-    number and the reads since."""
+    number and the reads since; an add lowers the recorded draw under the
+    same lock, so a read sees all of it or none."""
 
     def __init__(self, fn):
         functools.update_wrapper(self, fn)
@@ -66,6 +73,51 @@ class Counted:
         with self._lock:
             self._base = next(self._ticks) + 1 - int(n)
             self._reads = 0
+
+    def add_launches(self, n: int) -> None:
+        """Add ``n`` launches at once: a graph replay's captured ones."""
+        with self._lock:
+            self._base -= int(n)
+
+
+# the calling thread's open capture tally, if any (``CaptureTally``)
+_capturing = threading.local()
+
+
+class CaptureTally:
+    """The kernel launches made on this thread while a CUDA graph is
+    captured.  Capture executes nothing, so they go here and not into the
+    wrappers' counts; ``replayed()`` adds them to each wrapper every time
+    the graph replays.  ``with CaptureTally() as tally:`` around the
+    capture; another thread's launches meanwhile count as usual."""
+
+    def __init__(self):
+        self.counts: Dict[Counted, int] = {}
+
+    def __enter__(self) -> "CaptureTally":
+        if getattr(_capturing, "tally", None) is not None:
+            raise RuntimeError("a capture tally is already open on this "
+                               "thread")
+        _capturing.tally = self.counts
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _capturing.tally = None
+
+    def replayed(self) -> None:
+        """One replay of the graph: add its launches to every wrapper."""
+        for wrapper, n in self.counts.items():
+            wrapper.add_launches(n)
+
+
+def count(wrapper: Counted) -> None:
+    """One launch of ``wrapper`` that succeeded: into its count, or into
+    the calling thread's open capture tally."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        wrapper.count_launch()
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
 
 
 def _max_rows(smem_bytes, W, hd, tile, GW):
@@ -305,8 +357,9 @@ def pointers(tensors, vectors):
 
 def launch(wrapper: Counted, fn, error_string, device, *args):
     """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
-    stream; raise with the CUDA error's text if it returns one, else count
-    one launch of ``wrapper``.  The stream is read as its raw handle (no
+    stream (the capturing one while a graph is captured); raise with the
+    CUDA error's text if it returns one, else count one launch of
+    ``wrapper`` (``count``).  The stream is read as its raw handle (no
     ``torch.cuda.Stream`` object is built per call), and the device is
     switched only when it is not the calling thread's current one (read
     from the binding, not through ``torch.cuda.current_device``): both are
@@ -321,4 +374,4 @@ def launch(wrapper: Counted, fn, error_string, device, *args):
     if err:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{err} ({error_string(err).decode()})")
-    wrapper.count_launch()
+    count(wrapper)

@@ -1,9 +1,18 @@
 """Where a serve run's time goes on the GPU: a serve of ``launch/serve.py``
 (same flags: the fixed batch, or an in-process ``--arrivals poisson``
-replay) run once to warm up, then once under ``torch.profiler``.  Prints
-the wall time, the device-busy time (the union of all device activity
-intervals) and the idle share, and the device time by kernel class and by
-kernel.
+replay) run once to warm up, then once more on the same engine under
+``torch.profiler`` (device activity only).  Prints the wall time, the
+device-busy time (the union of all device activity intervals) and the
+idle share, the device activities per decode step, and the device time by
+kernel class and by kernel.
+
+The serve deploys the compiled chunk (``runtime/graphs.py``): the decode
+steps replay a captured CUDA graph, whose kernels the profiler records one
+by one like launched ones.  ``main`` profiles that path, then the same
+serve with every chunk run op by op (``runtime.engine.eager()``), so the
+two read side by side.  The warm-up run on the engine means the profiled
+graphed run has no eager warm-up chunk; its own prefill still brings new
+K/V, so it captures once more (``capture_s`` in the report).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch vicuna-7b --mode ghidorah --width 8 --batch 4 \\
@@ -14,6 +23,7 @@ Needs a GPU; it exits non-zero if the profiler records no device activity.
 from __future__ import annotations
 
 import collections
+import contextlib
 import subprocess
 import sys
 import time
@@ -23,11 +33,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import serve
+from repro_torch.runtime.engine import eager
 
 _CLASSES = (
-    ("verify_attention", ("verify_attention",)),
-    ("paged walk (B2/B3)", ("paged_attention_kernel",)),
-    ("tree kernels (B4/B5)", ("tree_partial_kernel",)),
+    ("B1 verify", ("verify_flash_kernel", "verify_attention_kernel")),
+    ("B2/B3 page walk", ("paged_flash_kernel", "paged_attention_kernel",
+                         "cache_flash_kernel")),
+    ("split merge and fold", ("merge_kernel", "carry_fold_kernel")),
+    ("B4 tree partial", ("tree_warp_kernel", "tree_partial_kernel")),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
 )
@@ -54,6 +67,69 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def profile_serve(args, loaded) -> dict:
+    """Serve ``args`` twice on one engine, the second time under the
+    profiler, on the path the caller's context deploys (the graphs, or
+    every chunk op by op inside ``eager()``).  Returns the wall, busy and
+    idle figures, the device time by class and by kernel, and the engines'
+    graph counters of the profiled run."""
+    eng = serve.build_engine(args, loaded)
+    serve.run(args, loaded, engine=eng)                  # warm-up
+    torch.cuda.synchronize()
+    before = eng.graph_stats
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = serve.run(args, loaded, engine=eng)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    after = eng.graph_stats
+    steps = res["stats"]["device_steps"]
+    pieces = res["stats"].get("extend_pieces", 0)
+    # the raw device activities (building the profiler's event tree for
+    # ~170k kernels of an eager run costs tens of seconds of host time)
+    dev = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    if not dev:
+        raise SystemExit("the profiler recorded no device activity")
+    busy = _busy_us([(start, start + us) for _, start, us in dev])
+    by_class = collections.Counter()
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for name, _, us in dev:
+        by_class[_class(name)] += us
+        by_name[name] += us
+        count[name] += 1
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                idle_share=1 - busy / wall_us, activities=len(dev),
+                steps=steps, pieces=pieces,
+                by_class={k: v / 1e3 for k, v in by_class.items()},
+                by_name={k: v / 1e3 for k, v in by_name.items()},
+                count=dict(count),
+                graphs={k: after[k] - before[k] for k in
+                        ("captures", "replays", "capture_s")})
+
+
+def report(label, r):
+    """The profile's lines, each tagged with ``label``."""
+    print(f"[profile] {label}: wall {r['wall_ms']:.2f} ms (prefills + "
+          f"{r['steps']} decode steps + {r['pieces']} prefill pieces), "
+          f"device busy {r['busy_ms']:.2f} ms, idle share "
+          f"{r['idle_share']:.3f}, {r['activities']} device activities "
+          f"({r['activities'] / max(r['steps'], 1):.0f} per step incl. "
+          f"prefill); graphs: {r['graphs']['captures']} captured in "
+          f"{r['graphs']['capture_s']:.3f}s, {r['graphs']['replays']} steps "
+          f"replayed", flush=True)
+    busy = max(r["busy_ms"], 1e-9)
+    for name, ms in sorted(r["by_class"].items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {label}: class {name}: {ms:.2f} ms "
+              f"({ms / busy:.3f} of busy)", flush=True)
+    top = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:12]
+    for name, ms in top:
+        print(f"[profile] {label}: kernel {ms:9.3f} ms "
+              f"x{r['count'][name]:6d} {name[:100]}", flush=True)
+
+
 def main(argv=None):
     args = serve.parse_args(argv)
     if args.device != "cuda":
@@ -66,27 +142,6 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     loaded = serve.load(args)
-    serve.run(args, loaded)                           # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = serve.run(args, loaded)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    steps = res["stats"]["device_steps"]
-    pieces = res["stats"].get("extend_pieces", 0)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise SystemExit("the profiler recorded no device activity")
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
-    by_class = collections.Counter()
-    by_name = collections.Counter()
-    count = collections.Counter()
-    for e in dev:
-        us = e.time_range.end - e.time_range.start
-        by_class[_class(e.name)] += us
-        by_name[e.name] += us
-        count[e.name] += 1
     paged = (f" --paged --page-size {args.page_size} --kv-dtype "
              f"{args.kv_dtype} --tree-kernel {args.tree_kernel}"
              if args.paged else "")
@@ -97,18 +152,10 @@ def main(argv=None):
     print(f"[profile] {card}; {args.arch} --mode {args.mode} "
           f"--width {args.width} --batch {args.batch} --prompt-len "
           f"{args.prompt_len} --tokens {args.tokens} --chunk {args.chunk}"
-          f"{paged}")
-    print(f"[profile] wall {wall_us / 1e3:.2f} ms (prefills + {steps} decode "
-          f"steps + {pieces} prefill pieces), device busy "
-          f"{busy / 1e3:.2f} ms, idle share "
-          f"{1 - busy / wall_us:.3f}, {len(dev)} device activities "
-          f"({len(dev) / max(steps, 1):.0f} per step incl. prefill)")
-    for label, us in by_class.most_common():
-        print(f"[profile] class {label}: {us / 1e3:.2f} ms "
-              f"({us / busy:.3f} of busy)")
-    for name, us in by_name.most_common(12):
-        print(f"[profile] kernel {us / 1e3:9.3f} ms x{count[name]:5d} "
-              f"{name[:110]}")
+          f"{paged}", flush=True)
+    for label, ctx in (("graphed", contextlib.nullcontext), ("eager", eager)):
+        with ctx():
+            report(label, profile_serve(args, loaded))
 
 
 if __name__ == "__main__":

@@ -377,12 +377,14 @@ def _replay_async(args, loaded, eng) -> dict:
             "engines": engines, "drained": drained}
 
 
-def run(args, loaded: Optional[Loaded] = None) -> dict:
+def run(args, loaded: Optional[Loaded] = None, engine=None) -> dict:
     """Serve once and print the reference's summary line.  The fixed batch
-    returns the tokens, the engine's stats and the wall time; a replay
-    returns its results, stats, requests and engines."""
+    returns the tokens, the engine's stats, the wall time and the engine;
+    a replay returns its results, stats, requests and engines.  ``engine``
+    reuses an engine of ``build_engine(args, loaded)`` (its captured chunk
+    graphs included) instead of building one."""
     loaded = loaded or load(args)
-    eng = build_engine(args, loaded)
+    eng = engine if engine is not None else build_engine(args, loaded)
     if args.arrivals != "none":
         if _fault_tolerant(args):
             return _replay_async(args, loaded, eng)
@@ -405,7 +407,7 @@ def run(args, loaded: Optional[Loaded] = None) -> dict:
               f"acceptance length {stats['acceptance_length']:.2f} "
               f"over {stats['steps']} seq-steps")
     return {"out": out, "stats": stats, "seconds": dt,
-            "prompts": batch["tokens"]}
+            "prompts": batch["tokens"], "engines": [eng]}
 
 
 def main(argv=None):

@@ -39,13 +39,27 @@ mask and budgets to the host in ONE transfer and hands the scheduler numpy
 arrays; an admission's first token stays an unsynced device scalar until
 the scheduler reads it.
 
-The KV cache is updated in place where the reference donates it.  The HCMP
-overlap runner and ``time_step`` come with a later slice (ROADMAP A9);
-``hcmp`` other than ``"inline"`` raises ``NotImplementedError``.
+The KV cache is updated in place where the reference donates it.
+
+The compiled chunk (``runtime/graphs.py``): where the reference jits the
+K-step scan, the port on a CUDA device captures one decode step in a CUDA
+graph on static buffers and replays it K times a chunk, for ``generate``
+and ``sched_step`` alike; a key's first chunk runs eagerly as the warm-up
+and the capture follows.  A failed capture or replay raises.  ``eager()``
+(the counterpart of ``jax.disable_jit()``) runs every chunk op by op
+instead, and the CPU always does: there the tests drive the graphs'
+static-buffer step without capture (``ChunkGraphs(..., capture=False)``).
+``time_step`` times the deployed chunk (the replay, on the card) and
+``measure_acceptance`` reuses one engine across same-shape trees, as in
+the reference.  The HCMP overlap runner comes with a later slice (ROADMAP
+A9); ``hcmp`` other than ``"inline"`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 import time
 from typing import Dict, Optional, Protocol, runtime_checkable
 
@@ -60,6 +74,7 @@ from repro_torch.runtime.cache import (Cache, PageAllocator, _set_row,
                                       insert_rows, pages_for, paginate_cache,
                                       reset_rows, slice_row, tile_rows,
                                       write_row_at)
+from repro_torch.runtime.graphs import ChunkGraphs
 from repro_torch.runtime.sampling import greedy
 
 _NO_EOS = -1          # sentinel: no real token id is negative
@@ -99,6 +114,32 @@ def _budget(n_tokens, batch) -> np.ndarray:
     if np.any(b < 1):
         raise ValueError("n_tokens must be >= 1 per sequence")
     return b
+
+
+class _Eager:
+    """How many ``eager()`` blocks are open in the process."""
+
+    def __init__(self):
+        self.depth = 0
+        self.lock = threading.Lock()
+
+
+_EAGER = _Eager()
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every engine's decode chunk eagerly, op by op, while the block
+    is open (the counterpart of ``jax.disable_jit()``): no graph is
+    captured or replayed.  It holds for every thread of the process, so a
+    replay whose scheduler runs in a worker thread is eager too."""
+    with _EAGER.lock:
+        _EAGER.depth += 1
+    try:
+        yield
+    finally:
+        with _EAGER.lock:
+            _EAGER.depth -= 1
 
 
 def _pow2_chunk(k_max: int, need: int) -> int:
@@ -210,6 +251,36 @@ def _seq_step(model, params, state, *, active):
     cur = torch.where(active, nxt, state.cur_token)
     return (SpecState(cache=cache, cur_token=cur, hidden=state.hidden),
             nxt[:, None], active.to(torch.int64))
+
+
+def _decode_step(model, params, heads, strategy, state, done, rem, eos_val,
+                 tree_kernel):
+    """One decode step, the body of the reference's scan (and the step
+    ``runtime/graphs.py`` captures).  ``eos_val`` is an int or a 0-d
+    tensor.  Returns (state, done, rem, emitted (B, Dmax) eos-padded, n
+    (B,) emitted count)."""
+    # capacity guard BEFORE the step: a commit may write up to max_depth
+    # slots (1 for sequential), so freeze once the ring cannot take a
+    # worst case without wrapping
+    done = done | (rem <= 0) | \
+        (capacity_left(state.cache) < strategy.tree.max_depth)
+    active = ~done
+    if strategy.draft == "none":
+        state, emitted, n = _seq_step(model, params, state, active=active)
+    else:
+        state, emitted, n = spec_step(model, params, heads, strategy.tree,
+                                      state, tree_kernel=tree_kernel,
+                                      active=active)
+    idx = torch.arange(emitted.shape[1], device=emitted.device)[None]
+    valid = idx < n[:, None]
+    is_eos = valid & (emitted == eos_val)
+    has_eos = is_eos.any(dim=1)
+    # truncate each sequence's emission at its first EOS
+    n_cut = torch.where(
+        has_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1, n)
+    n_eff = torch.where(active, n_cut, 0)
+    emitted = torch.where(idx < n_eff[:, None], emitted, eos_val)
+    return state, done | has_eos, rem - n_eff, emitted, n_eff
 
 
 @runtime_checkable
@@ -426,6 +497,22 @@ class DecodeEngine(_PagedPoolMixin):
         self._paged_init(paged=paged, page_size=page_size,
                          pool_pages=pool_pages)
         self.set_tree_kernel(tree_kernel)
+        # the compiled chunk: captured and replayed on a CUDA device.  The
+        # step holds the weights, not the engine: no reference cycle keeps
+        # a dropped engine's graphs for the garbage collector to destroy
+        # at some later moment (inside another capture, say)
+        on_card = self.device.type == "cuda"
+        self._graphs = ChunkGraphs(
+            functools.partial(_decode_step, model, params, heads),
+            self.device, capture=on_card)
+        self._graphed = on_card
+
+    @property
+    def graph_stats(self) -> dict:
+        """The chunk graphs' counters (``runtime/graphs.py``): graphs
+        built, steps replayed, warm-up steps, capture seconds and the
+        memory reserved while capturing."""
+        return dict(self._graphs.stats, graphs=len(self._graphs))
 
     # ---- paged pool --------------------------------------------------------
     @property
@@ -469,6 +556,12 @@ class DecodeEngine(_PagedPoolMixin):
             return DecodeStrategy.sequential(self.device)
         return DecodeStrategy.medusa(spec, self.device)
 
+    def set_tree(self, tree_spec: TreeSpec) -> None:
+        """Alias of ``set_strategy`` (``measure_acceptance`` swaps
+        candidate trees through it; same-shape trees share the captured
+        step)."""
+        self.set_strategy(tree_spec)
+
     def set_strategy(self, strategy) -> None:
         """Swap the decode strategy between chunks.  Accepts a
         ``DecodeStrategy`` or a ``TreeSpec``; the draft kind must match the
@@ -495,40 +588,28 @@ class DecodeEngine(_PagedPoolMixin):
         return self._registered
 
     # ---- the ONE chunk driver --------------------------------------------
-    def _run_chunk(self, K, strategy, state, done, rem, eos_val):
-        """K steps on the device, no host sync.  Returns (state, done, rem,
-        toks (K, B, Dmax) eos-padded, ns (K, B) emitted counts)."""
-        model, params = self.model, self.params
+    def _eager_chunk(self, K, strategy, state, done, rem, eos_val):
+        """K steps launched op by op, no host sync."""
         toks, ns = [], []
         for _ in range(K):
-            # capacity guard BEFORE the step: a commit may write up to
-            # max_depth slots (1 for sequential), so freeze once the ring
-            # cannot take a worst case without wrapping
-            done = done | (rem <= 0) | \
-                (capacity_left(state.cache) < strategy.tree.max_depth)
-            active = ~done
-            if strategy.draft == "none":
-                state, emitted, n = _seq_step(model, params, state,
-                                              active=active)
-            else:
-                state, emitted, n = spec_step(model, params, self.heads,
-                                              strategy.tree, state,
-                                              tree_kernel=self.tree_kernel,
-                                              active=active)
-            idx = torch.arange(emitted.shape[1], device=emitted.device)[None]
-            valid = idx < n[:, None]
-            is_eos = valid & (emitted == eos_val)
-            has_eos = is_eos.any(dim=1)
-            # truncate each sequence's emission at its first EOS
-            n_cut = torch.where(
-                has_eos, torch.argmax(is_eos.to(torch.int32), dim=1) + 1, n)
-            n_eff = torch.where(active, n_cut, 0)
-            emitted = torch.where(idx < n_eff[:, None], emitted, eos_val)
-            done = done | has_eos
-            rem = rem - n_eff
+            state, done, rem, emitted, n = _decode_step(
+                self.model, self.params, self.heads, strategy, state, done,
+                rem, eos_val, self.tree_kernel)
             toks.append(emitted)
-            ns.append(n_eff)
+            ns.append(n)
         return state, done, rem, torch.stack(toks), torch.stack(ns)
+
+    def _run_chunk(self, K, strategy, state, done, rem, eos_val):
+        """K steps on the device, no host sync: replays of the captured
+        step on a CUDA device (``runtime/graphs.py``), else (the CPU, or
+        inside ``eager()``) the steps op by op.  The carry passed in is
+        consumed.  Returns (state, done, rem, toks (K, B, Dmax) eos-padded,
+        ns (K, B) emitted counts)."""
+        if self._graphed and not _EAGER.depth:
+            return self._graphs.run(K, strategy, state, done, rem, eos_val,
+                                    self.tree_kernel, self._eager_chunk)
+        self._graphs.last = "eager"
+        return self._eager_chunk(K, strategy, state, done, rem, eos_val)
 
     # ---- batch generation ------------------------------------------------
     def generate(self, batch, n_tokens, *, eos: Optional[int] = None,
@@ -562,6 +643,7 @@ class DecodeEngine(_PagedPoolMixin):
         done_np = np.array([t == eos_val for t in first])
         rem_np = budget - 1
         accepts, times, device_steps = [], [], 0
+        replay_s, replay_steps = 0.0, 0
 
         while np.any(~done_np & (rem_np > 0)):
             # every live step emits >= 1 token, so the largest remaining
@@ -579,6 +661,9 @@ class DecodeEngine(_PagedPoolMixin):
             host = host.cpu().numpy()
             times.append(time.perf_counter() - t0)
             device_steps += k
+            if self._graphs.last == "replay":
+                replay_s += times[-1]
+                replay_steps += k
             toks_np = host[:k * B * D].reshape(k, B, D)
             ns_np = host[k * B * D:k * B * (D + 1)].reshape(k, B)
             done_np = host[k * B * (D + 1):k * B * (D + 1) + B] != 0
@@ -598,6 +683,10 @@ class DecodeEngine(_PagedPoolMixin):
         stats = _stats(accepts, times)
         stats["chunk"] = K
         stats["device_steps"] = device_steps
+        # the chunks that only replayed a graph captured earlier (no
+        # warm-up, no capture): their steps and seconds
+        stats["replay_steps"] = replay_steps
+        stats["replay_s"] = replay_s
         stats["n_emitted"] = n_emitted
         stats["emitted_total"] = int(n_emitted.sum())
         out = np.full((B, n_max), eos_val, np.int32)
@@ -607,6 +696,74 @@ class DecodeEngine(_PagedPoolMixin):
         if B == 1 and self.strategy.draft == "medusa":
             return out[0], stats
         return out, stats
+
+    # ---- measured step time (ARCA's time source) -------------------------
+    def time_step(self, strategy: Optional[DecodeStrategy] = None, *,
+                  batch: int = 1, prompt_len: int = 16, reps: int = 3,
+                  chunk: Optional[int] = None, hcmp: Optional[str] = None,
+                  tree_kernel: Optional[str] = None) -> float:
+        """Best-of-``reps`` wall time of ONE decode step under ``strategy``
+        (default: the current one), measured through the chunk the engine
+        deploys on a dummy prompt: on a CUDA device the replay of the
+        captured step (the strategy's tree is copied into the graph's
+        static tree), so the timed function is exactly the deployed one.
+        Timed at the serving cadence (``chunk`` steps per sync, divided
+        out).  ``tree_kernel`` ("dense" | "sparse") overrides the paged
+        verify kernel for the measurement and is restored after it; the
+        engine's strategy is never changed.  ``hcmp`` other than None or
+        "inline" raises: the executor split is not yet ported (ROADMAP
+        A9)."""
+        if hcmp not in (None, "inline"):
+            raise NotImplementedError(f"hcmp={hcmp!r}: the HCMP executor "
+                                      "split is not yet ported (ROADMAP A9)")
+        strategy = strategy or self.strategy
+        K = chunk or self.chunk
+        prev_tk = self.tree_kernel
+        if tree_kernel is not None:
+            self.set_tree_kernel(tree_kernel)
+        try:
+            tokens = torch.zeros((batch, prompt_len), dtype=torch.int32,
+                                 device=self.device)
+            if self.paged:
+                budget = np.full((batch,), self.max_len, np.int64)
+                tables, n_total = self._reserve_tables(batch, prompt_len,
+                                                       budget)
+                state = self._prefill_paged(tokens, tables, n_total)
+            else:
+                state = _prefill_state(self.model, self.params, self.heads,
+                                       {"tokens": tokens},
+                                       max_len=self.max_len,
+                                       window=self.window)
+            done = torch.zeros((batch,), dtype=torch.bool,
+                               device=self.device)
+            rem = torch.full((batch,), 1 << 30, dtype=torch.int32,
+                             device=self.device)
+
+            def step(st, dn, rm):
+                return self._run_chunk(K, strategy, st, dn, rm, _NO_EOS)
+
+            # warm-up: a new key's eager first chunk, then its capture
+            for _ in range(2):
+                state, done, rem, _, _ = step(state, done, rem)
+            # reprolint: disable=R3 (timing harness)
+            self._sync()
+            best = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                state, done, rem, _, _ = step(state, done, rem)
+                # this IS the measurement: ARCA times the deployed step
+                # reprolint: disable=R3 (timing harness)
+                self._sync()
+                best = min(best, time.perf_counter() - t0)
+            return best / K
+        finally:
+            if tree_kernel is not None:
+                self.set_tree_kernel(prev_tk)
+
+    def _sync(self) -> None:
+        """Wait for the engine's device work (the CPU runs synchronously)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
 
     # ---- continuous-batching slot protocol (runtime/continuous.py) -------
@@ -747,3 +904,25 @@ def _stats(accepts, times):
         "steps": int(accepts.size),
         "step_times": times,
     }
+
+
+def measure_acceptance(model, heads, params, tree_spec: TreeSpec, prompts,
+                       n_tokens=64, *, max_len=512,
+                       engine: Optional[DecodeEngine] = None) -> float:
+    """Empirical acceptance length over a prompt set (ARCA's brute-force
+    refinement evaluator and the Table-I measurement).
+
+    Pass ``engine`` to reuse a constructed engine across candidate trees:
+    the strategy is swapped with ``set_tree``, and same-shape trees share
+    its captured step on the card (the tree is copied into the graph's
+    static tree), so the evaluator does not capture per candidate."""
+    if engine is None:
+        engine = SpeculativeEngine(model, heads, params, tree_spec,
+                                   max_len=max_len)
+    else:
+        engine.set_tree(tree_spec)
+    als = []
+    for batch in prompts:
+        _, stats = engine.generate(batch, n_tokens)
+        als.append(stats["acceptance_length"])
+    return float(np.mean(als))

@@ -1,0 +1,327 @@
+"""The compiled chunk on the card: one decode step captured in a CUDA graph
+on static buffers and replayed K times a chunk (counterpart of the
+reference's ``jax.jit(jax.lax.scan(body))`` with the carry donated,
+``repro/runtime/engine.py::_chunk_fn``).
+
+One step, not the whole chunk, is captured: the host loop's power-of-two
+schedule (``engine._pow2_chunk``) runs chunks of 1, 2, 4, ... K steps, and
+one step's graph serves every length.  The chunk keeps its one host sync:
+a replay reads nothing back.
+
+The carry lives in the graph's static inputs.  K/V (the dense rows or the
+page pool) are written in place by the step, so the graph adopts the
+caller's tensors as its own; every other carried tensor (``key_pos``,
+``pos``, the block table, the int8 scales, ``cur_token``, ``hidden``,
+``done``, ``rem``) the step rebuilds, so the captured step ends by copying
+each new value back into its static input and the replays chain.  Between
+chunks the host may replace any of the small tensors (row surgery,
+admissions, new block tables, ``done``/``rem`` from the scheduler): before
+the replays each one that is not the static tensor itself is copied in.
+K/V that are not the adopted tensors (a new prefill, a new bank) take a
+new capture of the same key; the previous graph of the key is dropped, so
+a caller still holding its state keeps it intact.  The chunk's state comes
+back as the static tensors themselves: as in the reference, the carry
+passed in is consumed.
+
+The key is the reference's compile key plus the shapes a jit keys on
+implicitly: draft kind, tree kernel, the tree's shape (W, max_depth,
+paths) and the cache's layout, shapes and dtypes (B included).  Two trees
+of one shape share a graph: the tree's tensors are copied into the
+graph's static tree before the replays (``measure_acceptance`` and
+``set_tree`` rely on it).  EOS is a static scalar, as the reference traces
+it.
+
+The first chunk of a key runs eagerly, on the capture stream, and its
+result is used: it is the warm-up (launch plans, occupancy queries, the
+shared-memory attributes, cuBLAS handles and workspaces).  The capture
+follows at the key's next chunk and every later chunk replays.  One
+engine's graphs share one memory pool.  Captures are serialised in the
+process and run with ``capture_error_mode="thread_local"``, so a replica
+thread's eager work cannot void another's capture.  A kernel launch made
+while capturing counts into the graph's ``CaptureTally``, which every
+replay adds to the wrappers' counts.  A failed capture or replay raises;
+nothing falls back to the eager loop.
+
+``ChunkGraphs(..., capture=False)`` runs the same static-buffer step
+without capture, one call a replay: the CPU tests drive the bookkeeping
+through it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core.speculative.tree import Tree
+from repro_torch.core.speculative.verify import SpecState
+from repro_torch.kernels.launch import CaptureTally
+from repro_torch.runtime.cache import Cache, KVCache, PagedKVCache
+
+_TREE = ("depth", "mask", "paths", "node_path", "node_depth", "parent",
+         "rank")
+# the cache fields the step rebuilds or the host replaces between chunks
+# (copied into static inputs), and those written in place (adopted)
+_SMALL = {KVCache: ("key_pos", "pos"),
+          PagedKVCache: ("block_table", "key_pos", "pos", "scale_k",
+                         "scale_v")}
+_BIG = {KVCache: ("k", "v"), PagedKVCache: ("pool_k", "pool_v")}
+
+_CAPTURE_LOCK = threading.Lock()     # one capture at a time in the process
+
+
+def _clone(t):
+    return None if t is None else t.clone()
+
+
+def _copy_in(dst, src, what, cast=False):
+    """Copy ``src`` into the static ``dst`` unless it is that tensor.  A
+    shape (or, without ``cast``, a dtype) that does not fit raises."""
+    if src is dst:
+        return
+    if dst is None or src is None:
+        raise RuntimeError(f"{what}: the graph was captured with "
+                           f"{'no' if dst is None else 'a'} tensor there")
+    if src.shape != dst.shape or (not cast and src.dtype != dst.dtype):
+        raise RuntimeError(f"{what}: {tuple(src.shape)} {src.dtype} does not "
+                           f"fit the graph's {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(src)
+
+
+def _signature(t):
+    return None if t is None else (tuple(t.shape), t.dtype)
+
+
+class StepGraph:
+    """One decode step on static buffers, captured (or, without capture,
+    called once a replay).  ``step_fn(strategy, state, done, rem, eos,
+    tree_kernel)`` is the engine's step: it returns ``(state, done, rem,
+    emitted (B, D), n (B,))``."""
+
+    def __init__(self, step_fn: Callable, strategy, state: SpecState, done,
+                 rem, eos_val: int, tree_kernel: str):
+        kv = state.cache.kv
+        self.step_fn, self.tree_kernel = step_fn, tree_kernel
+        self.layout = type(kv)
+        src = strategy.tree
+        self.tree = Tree(width=src.width, max_depth=src.max_depth,
+                         **{f: getattr(src, f).clone() for f in _TREE})
+        self.tree_src = src
+        self.strategy = dataclasses.replace(strategy, tree=self.tree)
+        self.kv = dataclasses.replace(
+            kv, **{f: _clone(getattr(kv, f)) for f in _SMALL[self.layout]})
+        self.cur_token = state.cur_token.clone()
+        self.hidden = _clone(state.hidden)
+        dev = self.cur_token.device
+        self.done = torch.empty(done.shape, dtype=torch.bool, device=dev)
+        self.rem = torch.empty(rem.shape, dtype=torch.int64, device=dev)
+        self.done.copy_(done)
+        self.rem.copy_(rem)
+        self.eos_val = int(eos_val)
+        self.eos = torch.full((), self.eos_val, dtype=torch.int64, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tally = CaptureTally()
+        self.emitted = self.n = None
+
+    # ---- the captured function -----------------------------------------
+    def step(self):
+        """One step from the static inputs; every value it rebuilt is
+        copied back into its static input, so the next replay continues
+        from it.  Returns the step's ``(emitted, n)``."""
+        state = SpecState(cache=Cache(kv=self.kv), cur_token=self.cur_token,
+                          hidden=self.hidden)
+        state, done, rem, emitted, n = self.step_fn(
+            self.strategy, state, self.done, self.rem, self.eos,
+            self.tree_kernel)
+        kv = state.cache.kv
+        for f in _BIG[self.layout]:
+            if getattr(kv, f) is not getattr(self.kv, f):
+                raise RuntimeError(f"the step rebuilt the cache's {f}: its "
+                                   f"K/V must be written in place")
+        for f in _SMALL[self.layout]:
+            _copy_in(getattr(self.kv, f), getattr(kv, f), f)
+        _copy_in(self.cur_token, state.cur_token, "cur_token")
+        _copy_in(self.hidden, state.hidden, "hidden")
+        _copy_in(self.done, done, "done")
+        _copy_in(self.rem, rem, "rem")
+        return emitted, n
+
+    # ---- around it -------------------------------------------------------
+    def holds(self, state: SpecState) -> bool:
+        """Whether ``state``'s K/V are the tensors this graph adopted."""
+        kv = state.cache.kv
+        return type(kv) is self.layout and all(
+            getattr(kv, f) is getattr(self.kv, f) for f in _BIG[self.layout])
+
+    def load(self, strategy, state: SpecState, done, rem, eos_val) -> None:
+        """Copy what the host changed since the last replay into the
+        static inputs: the tree (a same-shape tree), the small cache
+        tensors, the carry, ``done``/``rem`` and EOS."""
+        if strategy.tree is not self.tree_src:
+            for f in _TREE:
+                _copy_in(getattr(self.tree, f), getattr(strategy.tree, f),
+                         f"tree.{f}")
+            self.tree_src = strategy.tree
+        kv = state.cache.kv
+        for f in _SMALL[self.layout]:
+            _copy_in(getattr(self.kv, f), getattr(kv, f), f)
+        _copy_in(self.cur_token, state.cur_token, "cur_token")
+        _copy_in(self.hidden, state.hidden, "hidden")
+        _copy_in(self.done, done, "done", cast=True)
+        _copy_in(self.rem, rem, "rem", cast=True)
+        if int(eos_val) != self.eos_val:
+            self.eos.fill_(int(eos_val))
+            self.eos_val = int(eos_val)
+
+    def capture(self, pool, stream) -> None:
+        """Capture ``step`` on ``stream`` into ``pool``; its kernel
+        launches go into ``self.tally``.  Executes nothing.  The garbage
+        collector is held off meanwhile: a collection that destroyed some
+        other CUDA graph would void the capture."""
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _CAPTURE_LOCK, torch.cuda.stream(stream), self.tally:
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self.emitted, self.n = self.step()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass      # the capture is void; the step's error is
+                    raise         # the one to report
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph = graph
+
+    def replay(self) -> None:
+        """One step: the graph's replay on the current stream (or, without
+        a capture, the step itself), then its launches into the counts."""
+        if self.graph is None:
+            self.emitted, self.n = self.step()
+        else:
+            self.graph.replay()
+        self.tally.replayed()
+
+    def state(self) -> SpecState:
+        return SpecState(cache=Cache(kv=dataclasses.replace(self.kv)),
+                         cur_token=self.cur_token, hidden=self.hidden)
+
+
+class ChunkGraphs:
+    """One engine's captured steps, one per key, in one memory pool, with
+    what they cost: ``stats`` counts the graphs built (``captures``), the
+    steps replayed and run as warm-up, the seconds the captures took and
+    the memory the device reserved while capturing (``pool_bytes``).
+    ``last`` says how the latest chunk ran: "warm-up", "capture" (then
+    replayed), "replay", or "eager" (set by the engine)."""
+
+    def __init__(self, step_fn: Callable, device, *, capture: bool = True):
+        self.step_fn, self.device, self.capture = step_fn, device, capture
+        self._graphs: Dict[tuple, StepGraph] = {}
+        self._warm = set()
+        self._pool = self._stream = None
+        self.stats = dict(captures=0, replays=0, warmup_steps=0,
+                          capture_s=0.0, pool_bytes=0)
+        self.last: Optional[str] = None
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    @staticmethod
+    def key(strategy, state: SpecState, done, tree_kernel) -> tuple:
+        kv = state.cache.kv
+        fields = _SMALL[type(kv)] + _BIG[type(kv)]
+        return (strategy.draft, tree_kernel, type(kv).__name__, kv.window,
+                getattr(kv, "page_size", 0),
+                strategy.tree.width, strategy.tree.max_depth,
+                tuple(_signature(getattr(strategy.tree, f)) for f in _TREE),
+                tuple(_signature(getattr(kv, f)) for f in fields),
+                _signature(state.cur_token), _signature(state.hidden),
+                tuple(done.shape))
+
+    def _side(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._stream
+
+    def _warm_up(self, eager_chunk, K, *args):
+        """The key's first chunk, eager, on the capture stream."""
+        if not self.capture:
+            return eager_chunk(K, *args)
+        side = self._side()
+        cur = torch.cuda.current_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = eager_chunk(K, *args)
+        cur.wait_stream(side)
+        return out
+
+    def _build(self, strategy, state, done, rem, eos_val, tree_kernel):
+        g = StepGraph(self.step_fn, strategy, state, done, rem, eos_val,
+                      tree_kernel)
+        if self.capture:
+            side = self._side()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            try:
+                g.capture(self._pool, side)
+            except BaseException:
+                # a pool whose only capture failed dies with it
+                if not self._graphs:
+                    self._pool = torch.cuda.graph_pool_handle()
+                raise
+            self.stats["capture_s"] += time.perf_counter() - t0
+            self.stats["pool_bytes"] += \
+                torch.cuda.memory_reserved(self.device) - reserved
+        self.stats["captures"] += 1
+        return g
+
+    def run(self, K, strategy, state, done, rem, eos_val, tree_kernel,
+            eager_chunk):
+        """One K-step chunk: ``eager_chunk(K, strategy, state, done, rem,
+        eos_val)`` at a key's first chunk, else K replays of its graph.
+        Returns what the eager chunk returns: ``(state, done, rem, toks (K,
+        B, D), ns (K, B))``."""
+        key = self.key(strategy, state, done, tree_kernel)
+        if key not in self._warm:
+            out = self._warm_up(eager_chunk, K, strategy, state, done, rem,
+                                eos_val)
+            self._warm.add(key)
+            self.stats["warmup_steps"] += K
+            self.last = "warm-up"
+            return out
+        g = self._graphs.get(key)
+        if g is not None and g.holds(state):
+            g.load(strategy, state, done, rem, eos_val)
+            self.last = "replay"
+        else:
+            # the key's old graph (and its adopted K/V) stays alive through
+            # the new capture, which keeps the shared pool in use (a pool
+            # whose graphs are all gone cannot take another capture), and
+            # is destroyed outside any capture
+            g = self._build(strategy, state, done, rem, eos_val, tree_kernel)
+            with _CAPTURE_LOCK:
+                old = self._graphs.pop(key, None)
+                self._graphs[key] = g
+                del old
+            self.last = "capture"
+        toks = ns = None
+        for i in range(K):
+            g.replay()
+            if toks is None:
+                toks = g.emitted.new_empty((K,) + tuple(g.emitted.shape))
+                ns = g.n.new_empty((K,) + tuple(g.n.shape))
+            toks[i].copy_(g.emitted)
+            ns[i].copy_(g.n)
+        self.stats["replays"] += K
+        return g.state(), g.done, g.rem, toks, ns

@@ -226,3 +226,107 @@ def test_tree_partial_warp_route_on_card(W):
         with pytest.raises(ValueError):
             tp.sparse_tree_attention_partial(bad, *args[1:])
     assert tp.sparse_tree_attention_partial.launches == n + 2
+
+
+@pytest.mark.gpu
+def test_paged_walk_two_threads_two_widths_on_card():
+    """B2 on its fp32 CUDA-core route, whose block's shared memory grows
+    with W, from two threads at once: one at W=8, one at W=256 (a chain),
+    200 calls each.  The shared-memory attribute is raised once per kernel
+    instance to one fixed value, so neither thread's launch can find the
+    other's smaller setting: every launch succeeds and every result equals
+    the plain version (fp32 2e-5)."""
+    import threading
+    _need_gpu()
+    cases = []
+    for W, tree in ((8, chip_smoke.rand_tree(np, 8, seed=8)),
+                    (256, chip_smoke.chain_tree(np, 256))):
+        ps, maxp, B = 16, 24, 2
+        table = np.random.default_rng(W).permutation(B * maxp).reshape(
+            B, maxp).astype(np.int32)
+        a = chip_smoke.paged_inputs(
+            torch, np, B=B, W=W, Hq=4, Hkv=2, hd=64, ps=ps, table=table,
+            n_pages=B * maxp, fills=[40, 33], pool_dtype="float32",
+            q_dtype="float32", seed=W, tree=tree)
+        args = chip_smoke.paged_args(a)
+        cases.append((args, plain.paged_tree_attention_plain(*args)))
+    n = pa.paged_tree_attention.launches
+    errors, worst = [], []
+
+    def run(args, want):
+        try:
+            outs = [pa.paged_tree_attention(*args) for _ in range(200)]
+            torch.cuda.synchronize()
+            worst.append(max(float((o - want).abs().max()) for o in outs))
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=c) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(worst) == 2 and max(worst) < 2e-5, worst
+    assert pa.paged_tree_attention.launches == n + 400
+
+
+# serve modes of the graph path's card test: label -> (mode, flags, the
+# kernels each forward launches once per layer)
+GRAPH_MODES = {
+    "dense ghidorah": ("ghidorah", [], ("verify_attention",)),
+    "dense sequential": ("sequential", [], ("verify_attention",)),
+    "paged bf16": ("ghidorah", ["--paged", "--kv-dtype", "bf16"],
+                   ("paged_tree_attention",)),
+    "paged int8": ("ghidorah", ["--paged", "--kv-dtype", "int8"],
+                   ("paged_tree_attention",)),
+    "int8 sparse": ("ghidorah", ["--paged", "--kv-dtype", "int8",
+                                 "--tree-kernel", "sparse"],
+                    ("paged_cache_attention",
+                     "sparse_tree_attention_partial")),
+}
+_LOADED = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(GRAPH_MODES))
+def test_graphed_chunk_equals_eager_on_card(label):
+    """On qwen2-0.5b-smoke (fp32, random weights), the captured step's
+    replays give exactly the eager chunks' tokens, over two ``generate``
+    calls (the second captures anew on its own prefill's K/V), and each
+    forward is counted once per layer through the replays' tallies."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
+    _need_gpu()
+    mode, flags, kernels = GRAPH_MODES[label]
+    args = serve.parse_args(
+        ["--arch", "qwen2-0.5b-smoke", "--mode", mode, "--width", "8",
+         "--batch", "3", "--prompt-len", "24", "--tokens", "20",
+         "--chunk", "4", "--page-size", "8"] + flags)
+    if not _LOADED:
+        _LOADED["m"] = serve.load(args, with_heads=True)
+    loaded = _LOADED["m"]
+    batch = {"tokens": serve.prompts(loaded.cfg, args)}
+    wrappers = chip_smoke.kernel_wrappers()
+    graphed = serve.build_engine(args, loaded)
+    for w in wrappers.values():
+        w.launches = 0
+    outs, steps = [], 0
+    for _ in range(2):
+        out, stats = graphed.generate(batch, args.tokens)
+        outs.append(out)
+        steps += stats["device_steps"]
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    want = loaded.cfg.num_layers * steps
+    assert counts == {name: want if name in kernels else 0
+                      for name in wrappers}, (counts, want)
+    gs = graphed.graph_stats
+    assert gs["captures"] == 2 and gs["replays"] > 0 and gs["graphs"] == 1
+    assert stats["replay_steps"] > 0
+    with eager():
+        ref, _ = serve.build_engine(args, loaded).generate(batch,
+                                                           args.tokens)
+    for out in outs:
+        np.testing.assert_array_equal(out, ref)
