@@ -59,6 +59,24 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    B=4 on both paths, and profile each fixed-batch run and (e) on both
    paths (``launch/profile_serve.py``: idle share, device time by class;
    the profiler must see the replays' kernels).
+4b. ARCA and HCMP, on the same weights: (a) the analytic ``--width 0``
+   choice (the paper's Jetson model) and its table; (b) measured ARCA,
+   ``arca.profile_engine`` on the paged int8 engine at B=4, prompt 512:
+   every width of ``arca.WIDTHS`` inline over the dense kernel, and widths
+   1-16 under {inline, overlap} x {dense, sparse}, each ``time_step``
+   counted (the dense arm launches B2, the sparse arm B3 and B4, once per
+   layer a step) and its graphs released; the times, ``choose_strategy``'s
+   table over them (E[AL], step ms, est. tok/s, partition, kernel) and the
+   argmax; (c) ``--hcmp overlap`` on the fixed batch, dense and paged
+   int8, graphed: the serve's gate holds the tokens to an inline twin's,
+   the pre-draft hits and discards, the replayed step beside inline's, and
+   from ``profile_serve`` the device time a step with two activities at
+   once (the draft's branch beside the commit); (d) replay (e)'s traffic
+   with ``--hcmp overlap`` (the serve's ``_hcmp_gate``: every request's
+   tokens equal the inline twin's, pools drained) and with ``--spec-width
+   auto --hcmp auto --tree-kernel auto`` (the widths chosen, the
+   switches, the captures, tok/s, latency; every request DONE); (e) an
+   error inside the overlap capture reaches the caller.
 5. Drive the Fig. 10b study's path (the normalized tree kernel through its
    public entry point) with the counts set to 0 before it, and print the
    study's FLOP terms.  Time each kernel at the main path's shapes, the
@@ -1398,6 +1416,355 @@ def check_outputs(torch, np, loaded, results):
             f"{margins if margins else 'none'}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: ARCA and HCMP
+# ---------------------------------------------------------------------------
+# the widths timed under both partitions and both paged verify kernels (the
+# candidates of --spec-width auto); every width of arca.WIDTHS is timed
+# inline over the dense kernel
+GRID_WIDTHS = (1, 2, 4, 8, 16)
+# phase (c)'s fixed-batch overlap runs: label -> (extra flags, the phase-4
+# run of the same flags, the kernel each forward launches once per layer)
+OVERLAP_RUNS = {
+    "dense": ([], "ghidorah", "verify_attention"),
+    "paged int8": (["--paged", "--kv-dtype", "int8"], "paged ghidorah int8",
+                   "paged_tree_attention"),
+}
+
+
+def _as_smoke_error(fn, *args, **kw):
+    """Run ``fn``; a serve gate's exit becomes this script's failure."""
+    try:
+        return fn(*args, **kw)
+    except SystemExit as e:
+        raise SmokeError(f"serve exited: {e}") from None
+
+
+def _want_counts(want):
+    return {name: want.get(name, 0) for name in kernel_wrappers()}
+
+
+def arca_analytic(loaded):
+    """(a) ``--width 0``: ARCA's analytic choice on the paper's Jetson
+    Xavier NX model (its times are the Jetson's, not this card's)."""
+    from repro_torch.core import arca
+    from repro_torch.core.speculative import tree as T
+    from repro_torch.launch import serve
+    cfg = loaded.cfg
+    accs = T.default_accs(cfg.medusa_heads, cfg.medusa_top_k)
+    strats = arca.choose_strategy(cfg, accs, ctx=MAIN["prompt_len"])
+    best = arca.best(strats)
+    log("ARCA (a) analytic, Jetson model, ctx "
+        f"{MAIN['prompt_len']}: " + "; ".join(
+            f"W={w} E[AL] {s.acceptance:.3f} step {1e3 * s.step_time:.2f} "
+            f"ms {s.throughput:.2f} tok/s" for w, s in strats.items())
+        + f"; --width 0 picks width={best.width}")
+    spec = serve.fixed_spec(serve.parse_args(
+        argv("ghidorah")[:4] + ["--width", "0"] + argv("ghidorah")[6:]),
+        cfg)
+    if spec.width != best.width:
+        raise SmokeError(f"--width 0 built width {spec.width}, ARCA chose "
+                         f"{best.width}")
+    return dict(width=best.width, table={
+        w: dict(al=s.acceptance, step_ms=1e3 * s.step_time)
+        for w, s in strats.items()})
+
+
+def arca_measured(torch, np, loaded, card):
+    """(b) ``profile_engine`` on the paged int8 engine at the main path's
+    batch and prompt: every width of ``arca.WIDTHS`` inline over the dense
+    kernel, then GRID_WIDTHS under both partitions and both kernels (the
+    grid re-times inline/dense there: two readings of the same arm).
+    Each ``time_step`` is counted: the dense arm must launch B2, the
+    sparse arm B3 and B4, once per layer a step, and nothing else."""
+    from repro_torch.core import arca
+    from repro_torch.core.speculative import tree as T
+    from repro_torch.launch import serve
+    cfg = loaded.cfg
+    L, B, P = cfg.num_layers, MAIN["batch"], MAIN["prompt_len"]
+    accs = T.default_accs(cfg.medusa_heads, cfg.medusa_top_k)
+    depth = max(T.candidate_spec(accs, w).max_depth for w in arca.WIDTHS)
+    args = serve.parse_args(argv("ghidorah") + [
+        "--paged", "--kv-dtype", "int8", "--tree-kernel", "sparse",
+        "--hcmp", "overlap"])
+    eng = serve.build_engine(args, loaded,
+                             max_len=P + MAIN["tokens"] + depth)
+    reps, K = 3, eng.chunk
+    arms = {}
+    real = eng.time_step
+
+    def counted(strategy, **kw):
+        reset_counts()
+        t = real(strategy, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        arm = (strategy.width, kw["hcmp"], kw["tree_kernel"])
+        kernels = ("paged_tree_attention",) if arm[2] == "dense" else (
+            "paged_cache_attention", "sparse_tree_attention_partial")
+        want = _want_counts({k: L * K * (2 + reps) for k in kernels})
+        if counts != want:
+            raise SmokeError(f"ARCA arm {arm}: launches {counts}, expected "
+                             f"{want}")
+        if not (0 < t < float("inf")):
+            raise SmokeError(f"ARCA arm {arm}: time {t}")
+        arms.setdefault(arm, []).append(1e3 * t)
+        return t
+
+    eng.time_step = counted
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tf_all = arca.profile_engine(eng, arca.WIDTHS, accs=accs, batch=B,
+                                 prompt_len=P, reps=reps,
+                                 hcmp_modes=("inline",),
+                                 tree_kernels=("dense",))
+    tf_grid = arca.profile_engine(eng, GRID_WIDTHS, accs=accs, batch=B,
+                                  prompt_len=P, reps=reps,
+                                  hcmp_modes=("inline", "overlap"),
+                                  tree_kernels=("dense", "sparse"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    peak = torch.cuda.max_memory_allocated()
+    if eng.graph_stats["graphs"]:
+        raise SmokeError(f"profiling kept {eng.graph_stats['graphs']} "
+                         f"graphs: time_step must release them")
+    want = {(w, "inline", "dense") for w in arca.WIDTHS} | {
+        (w, m, k) for w in GRID_WIDTHS for m in ("inline", "overlap")
+        for k in ("dense", "sparse")}
+    if set(arms) != want:
+        raise SmokeError(f"ARCA arms timed {sorted(arms)}, expected "
+                         f"{sorted(want)}")
+    for w in GRID_WIDTHS:
+        spec = T.candidate_spec(accs, w)
+        key = (spec.width, spec.max_depth, spec.n_paths, B)
+        missing = [k for k in [key + (m,) for m in ("inline", "overlap")]
+                   + [key + (m, k) for m in ("inline", "overlap")
+                      for k in ("dense", "sparse")] if k not in tf_grid.times]
+        if missing:
+            raise SmokeError(f"profile_engine lacks the keys {missing}")
+
+    def pick(spec):
+        return tf_grid if spec.width in GRID_WIDTHS else tf_all
+
+    def time_fn(c, w, ctx, spec):
+        return pick(spec)(c, w, ctx, spec)
+
+    time_fn.partition_for = lambda spec: pick(spec).partition_for(spec)
+    time_fn.kernel_for = lambda spec: pick(spec).kernel_for(spec)
+    strats = arca.choose_strategy(cfg, accs, ctx=P, time_fn=time_fn)
+    best = arca.best(strats)
+    log(f"ARCA (b) measured ({card}; vicuna-7b, paged int8, B={B}, prompt "
+        f"{P}, best of {reps} chunks of {K} replayed steps; "
+        f"{len(sum(arms.values(), []))} time_step calls in {seconds:.1f}s; "
+        f"memory allocated {before[0] / 2 ** 30:.2f} GiB before profiling, "
+        f"{after[0] / 2 ** 30:.2f} after, {peak / 2 ** 30:.2f} at peak; "
+        f"reserved {before[1] / 2 ** 30:.2f} before, "
+        f"{after[1] / 2 ** 30:.2f} after): "
+        "step ms by (W, partition, kernel): " + "; ".join(
+            f"{a}: " + "/".join(f"{ms:.3f}" for ms in v)
+            for a, v in sorted(arms.items())))
+    log("ARCA (b) choose_strategy(default_accs(5, 10)) over the measured "
+        "times: " + "; ".join(
+            f"W={w} E[AL] {s.acceptance:.3f} step {1e3 * s.step_time:.3f} ms "
+            f"est. {B * s.throughput:.1f} tok/s (B={B}) partition {s.hcmp} "
+            f"kernel {s.tree_kernel}" for w, s in strats.items())
+        + f"; argmax width={best.width} ({best.hcmp}, {best.tree_kernel})")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(arms={f"{w} {m} {k}": v for (w, m, k), v in arms.items()},
+                choice=dict(width=best.width, hcmp=best.hcmp,
+                            tree_kernel=best.tree_kernel),
+                table={w: dict(al=s.acceptance, step_ms=1e3 * s.step_time,
+                               hcmp=s.hcmp, tree_kernel=s.tree_kernel)
+                       for w, s in strats.items()},
+                seconds=seconds, allocated_bytes=(before[0], after[0]),
+                peak_bytes=peak, reserved_bytes=(before[1], after[1]))
+
+
+def overlap_fixed_batch(torch, np, loaded, card, profiles, launches):
+    """(c) ``--hcmp overlap`` on the fixed batch, dense and paged int8,
+    graphed: the serve's gate holds its tokens to the inline twin's; the
+    counts cover both runs; then ``profile_serve`` reads how much device
+    time a step runs two activities at once, beside phase 4's inline
+    profile of the same flags."""
+    from repro_torch.launch import profile_serve as ps
+    from repro_torch.launch import serve
+    L = loaded.cfg.num_layers
+    out = {}
+    for label, (flags, inline_label, kernel) in OVERLAP_RUNS.items():
+        args = serve.parse_args(argv("ghidorah") + flags + ["--hcmp",
+                                                            "overlap"])
+        reset_counts()
+        res = _as_smoke_error(serve.run, args, loaded)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        st, ist = res["stats"], res["inline"]["stats"]
+        want = _want_counts({kernel: L * (st["device_steps"]
+                                          + ist["device_steps"])})
+        if counts != want:
+            raise SmokeError(f"overlap {label}: launches {counts}, expected "
+                             f"{want}")
+        for name, got in counts.items():
+            launches[name] += got
+        eng = res["engines"][0]
+        check_graphs(f"overlap {label}", "graphed",
+                     graph_summary([eng]), st["device_steps"])
+        hs = eng.hcmp_stats
+        if hs["executors"] != (2 if DEVICE == "cuda" else 1) or not all(
+                k[0] == "overlap" for k in eng._graphs._graphs):
+            raise SmokeError(f"overlap {label}: {hs}, graph keys "
+                             f"{list(eng._graphs._graphs)}")
+        o_ms = 1e3 * st["replay_s"] / max(st["replay_steps"], 1)
+        i_ms = 1e3 * ist["replay_s"] / max(ist["replay_steps"], 1)
+        prof = _as_smoke_error(ps.profile_serve, args, loaded)
+        inline_prof = profiles[inline_label]["graphed"]
+        log(f"HCMP (c) overlap {label} ({card}): tokens equal the inline "
+            f"twin's; predraft hits {hs['predraft_hits']} / discards "
+            f"{hs['predraft_discards']} over {hs['chunks']} chunks on "
+            f"{hs['verify_executor']} + {hs['draft_executor']}; replayed "
+            f"step {o_ms:.3f} ms overlap against {i_ms:.3f} ms inline (same "
+            f"process, {st['replay_steps']} / {ist['replay_steps']} steps); "
+            f"{st['emitted_total'] / res['seconds']:.1f} tok/s against "
+            f"{ist['emitted_total'] / res['inline']['seconds']:.1f} (the "
+            f"inline twin's first run captures too); "
+            f"{_graphs_text(dict(graphs=graph_summary([eng])))}; profile: "
+            f"{prof['overlap_ms'] / max(prof['steps'], 1):.4f} ms a step "
+            f"with two device activities at once over {prof['streams']} "
+            f"stream(s) (phase 4's inline profile "
+            f"{inline_prof['overlap_ms'] / max(inline_prof['steps'], 1):.4f}"
+            f" ms over {inline_prof['streams']}), busy "
+            f"{prof['busy_ms']:.1f} ms over {prof['steps']} steps "
+            f"(inline {inline_prof['busy_ms']:.1f} over "
+            f"{inline_prof['steps']}), idle share {prof['idle_share']:.3f} "
+            f"(inline {inline_prof['idle_share']:.3f})")
+        out[label] = dict(
+            overlap_step_ms=o_ms, inline_step_ms=i_ms,
+            tok_s=st["emitted_total"] / res["seconds"],
+            inline_tok_s=ist["emitted_total"] / res["inline"]["seconds"],
+            predraft_hits=hs["predraft_hits"],
+            predraft_discards=hs["predraft_discards"],
+            overlap_ms_per_step=prof["overlap_ms"] / max(prof["steps"], 1),
+            inline_overlap_ms_per_step=inline_prof["overlap_ms"]
+            / max(inline_prof["steps"], 1),
+            streams=prof["streams"], idle_share=prof["idle_share"])
+        del res, eng
+    return out
+
+
+def overlap_replay(torch, np, loaded, card, launches):
+    """(d) replay (e)'s traffic with ``--hcmp overlap`` (the serve's
+    ``_hcmp_gate`` holds every request to the inline twin's tokens), then
+    with ``--spec-width auto --hcmp auto --tree-kernel auto`` (measured
+    ARCA at B=4, the adaptive scheduler re-deciding the width)."""
+    from repro_torch.launch import serve
+    L = loaded.cfg.num_layers
+    base = argv("ghidorah") + REPLAY_FLAGS + REPLAY_RUNS["(e) continuous"]
+    out = {}
+    for label, flags in (("overlap", ["--hcmp", "overlap"]),
+                         ("auto", ["--spec-width", "auto", "--hcmp", "auto",
+                                   "--tree-kernel", "auto"])):
+        args = serve.parse_args(base + flags)
+        t0 = time.perf_counter()
+        eng, adaptive = _as_smoke_error(serve.prepare, args, loaded)
+        prep_s = time.perf_counter() - t0
+        g0 = graph_summary([eng])
+        reset_counts()
+        res = _as_smoke_error(serve.run, args, loaded, engine=eng,
+                              adaptive=adaptive)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        stats = res["stats"]
+        runs = [stats] + ([res["inline"]["stats"]] if "inline" in res
+                          else [])
+        steps = sum(s["device_steps"] for s in runs)
+        pieces = sum(s.get("extend_pieces", 0) for s in runs)
+        if eng.tree_kernel == "dense":
+            want = {"paged_tree_attention": L * (steps + pieces)}
+        else:
+            want = {"paged_tree_attention": L * pieces,
+                    "paged_cache_attention": L * steps,
+                    "sparse_tree_attention_partial": L * steps}
+        if counts != _want_counts(want):
+            raise SmokeError(f"replay {label}: launches {counts}, expected "
+                             f"{_want_counts(want)}")
+        for name, got in counts.items():
+            launches[name] += got
+        bad = [(r.req_id, r.state, r.n_emitted) for r in res["results"]
+               if r.state != "DONE" or r.n_emitted != MAIN["tokens"]]
+        if bad or not (eng.sched_pool_conserved() and eng.sched_drained()):
+            raise SmokeError(f"replay {label}: not DONE with the full "
+                             f"budget {bad}, or a pool leaked")
+        hs = eng.hcmp_stats or {}
+        g = {k: v - g0[k] for k, v in graph_summary([eng]).items()}
+        sw = stats.get("strategy_switches", [])
+        log(f"HCMP (d) replay (e) {label} ({card}; prepare "
+            f"{prep_s:.1f}s): {_replay_summary(stats)}; partition "
+            f"{eng.hcmp}, tree kernel {eng.tree_kernel}, width at drain "
+            f"{eng.strategy.width}, {len(sw)} switch(es) "
+            f"{[(x['from'], x['to']) for x in sw]}; predraft hits "
+            f"{hs.get('predraft_hits', 0)} / discards "
+            f"{hs.get('predraft_discards', 0)}; the replay's "
+            f"{_graphs_text(dict(graphs=g))}"
+            + ("; every request's tokens equal the inline twin's"
+               if "inline" in res else ""))
+        out[label] = dict(tok_s=stats["tok_s"],
+                          latency_mean_s=stats["latency_mean_s"],
+                          latency_p95_s=stats["latency_p95_s"],
+                          hcmp=eng.hcmp, tree_kernel=eng.tree_kernel,
+                          switches=[(x["from"], x["to"]) for x in sw],
+                          width_final=eng.strategy.width, graphs=g,
+                          predraft=(hs.get("predraft_hits", 0),
+                                    hs.get("predraft_discards", 0)))
+        del res, eng
+    return out
+
+
+def failed_capture_raises(torch, loaded):
+    """(e) An error raised while the overlapped step is captured reaches
+    the caller: the chunk never runs on the inline step instead."""
+    from repro_torch.core.hcmp import executors
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv("ghidorah") + ["--hcmp", "overlap"])
+    eng = serve.build_engine(args, loaded)
+    real = executors.verify_front
+
+    def faulty(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("injected capture fault")
+        return real(*a, **kw)
+
+    executors.verify_front = faulty
+    try:
+        eng.generate({"tokens": serve.prompts(loaded.cfg, args)}, 16)
+    except RuntimeError as e:
+        if "injected capture fault" not in str(e):
+            raise
+    else:
+        raise SmokeError("a failed overlap capture did not raise")
+    finally:
+        executors.verify_front = real
+    if eng.graph_stats["captures"]:
+        raise SmokeError(f"the failed capture counted: {eng.graph_stats}")
+    log("HCMP (e) an error inside the overlap capture raised to the caller "
+        "(no inline fallback)")
+
+
+def phase_arca_hcmp(torch, np, loaded, card, profiles, launches):
+    t0 = time.perf_counter()
+    out = dict(analytic=arca_analytic(loaded),
+               measured=arca_measured(torch, np, loaded, card))
+    out["fixed"] = overlap_fixed_batch(torch, np, loaded, card, profiles,
+                                       launches)
+    out["replay"] = overlap_replay(torch, np, loaded, card, launches)
+    failed_capture_raises(torch, loaded)
+    torch.cuda.empty_cache()
+    log(f"ARCA and HCMP phase took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def sdpa_inputs(torch, args):
     """``scaled_dot_product_attention`` operands computing the fused verify
     of a dense cache: cache and tree keys side by side, one boolean mask."""
@@ -2128,10 +2495,12 @@ def main():
     replays = phase_replay(torch, np, loaded, launches)
     log(f"serve runs done at {time.perf_counter() - t_start:.1f}s")
     phase_time_step(torch, loaded, card)
-    phase_profile(torch, loaded, card)
+    profiles = phase_profile(torch, loaded, card)
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f}s")
+    arca_hcmp = phase_arca_hcmp(torch, np, loaded, card, profiles, launches)
     del loaded
     torch.cuda.empty_cache()
-    log(f"phase 4 done at {time.perf_counter() - t_start:.1f}s")
+    log(f"phase 4b done at {time.perf_counter() - t_start:.1f}s")
     study = phase_sparse_study(torch, np, launches)
     timing = phase_timing(torch, np, card)
     paged = phase_paged_timing(torch, np, card)
@@ -2152,6 +2521,8 @@ def main():
                      chain_ms=tree["B1 chain W=256"]["kernel_ms"],
                      chain_device_ms=tree["B1 chain W=256"]["device_ms"],
                      chain_bound_ms=tree["B1 chain W=256"]["bound_ms"],
+                     chain_plain_ms=tree["B1 chain W=256"]["plain_ms"],
+                     chain_library_ms=tree["B1 chain W=256"]["library_ms"],
                      decode_ms=d["kernel_ms"],
                      decode_device_ms=d["device_ms"],
                      decode_plain_ms=d["plain_ms"],
@@ -2167,6 +2538,8 @@ def main():
                      chain_ms=tree["B2 chain W=256"]["kernel_ms"],
                      chain_device_ms=tree["B2 chain W=256"]["device_ms"],
                      chain_bound_ms=tree["B2 chain W=256"]["bound_ms"],
+                     chain_plain_ms=tree["B2 chain W=256"]["plain_ms"],
+                     chain_library_ms=tree["B2 chain W=256"]["library_ms"],
                      decode_ms=b2d["kernel_ms"],
                      decode_device_ms=b2d["device_ms"],
                      decode_plain_ms=b2d["plain_ms"],

@@ -63,6 +63,10 @@ class Tree:
     parent: torch.Tensor
     rank: torch.Tensor
 
+    def shape(self) -> tuple:
+        """Shape bucket, mirroring ``TreeSpec.shape``."""
+        return (self.width, self.max_depth, int(self.paths.shape[0]))
+
     @staticmethod
     def from_spec(spec: "TreeSpec", device) -> "Tree":
         def t(a):

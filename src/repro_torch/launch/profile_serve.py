@@ -6,6 +6,12 @@ device-busy time (the union of all device activity intervals) and the
 idle share, the device activities per decode step, and the device time by
 kernel class and by kernel.
 
+With ``--hcmp overlap`` the draft of each step runs on a second stream
+beside the commit: the report adds the device time during which two
+activities run at once (a single stream never overlaps itself) and the
+streams the kernels ran on.  The overlap gate's inline serve is not run
+under the profiler.
+
 The serve deploys the compiled chunk (``runtime/graphs.py``): the decode
 steps replay a captured CUDA graph, whose kernels the profiler records one
 by one like launched ones.  ``main`` profiles that path, then the same
@@ -67,19 +73,33 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _overlap_us(intervals) -> float:
+    """Length of the time covered by two or more [start, end) intervals."""
+    edges = sorted([(s, 1) for s, _ in intervals]
+                   + [(e, -1) for _, e in intervals])
+    total, depth, last = 0.0, 0, None
+    for t, d in edges:
+        if depth >= 2:
+            total += t - last
+        depth += d
+        last = t
+    return total
+
+
 def profile_serve(args, loaded) -> dict:
     """Serve ``args`` twice on one engine, the second time under the
     profiler, on the path the caller's context deploys (the graphs, or
     every chunk op by op inside ``eager()``).  Returns the wall, busy and
     idle figures, the device time by class and by kernel, and the engines'
     graph counters of the profiled run."""
-    eng = serve.build_engine(args, loaded)
-    serve.run(args, loaded, engine=eng)                  # warm-up
+    eng, adaptive = serve.prepare(args, loaded)
+    kw = dict(engine=eng, adaptive=adaptive, gate=False)
+    serve.run(args, loaded, **kw)                        # warm-up
     torch.cuda.synchronize()
     before = eng.graph_stats
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = serve.run(args, loaded, engine=eng)
+        res = serve.run(args, loaded, **kw)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     after = eng.graph_stats
@@ -87,21 +107,25 @@ def profile_serve(args, loaded) -> dict:
     pieces = res["stats"].get("extend_pieces", 0)
     # the raw device activities (building the profiler's event tree for
     # ~170k kernels of an eager run costs tens of seconds of host time)
-    dev = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+    dev = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3,
+            e.device_resource_id())
            for e in prof.profiler.kineto_results.events()
            if e.device_type() == DeviceType.CUDA]
     if not dev:
         raise SystemExit("the profiler recorded no device activity")
-    busy = _busy_us([(start, start + us) for _, start, us in dev])
+    spans = [(start, start + us) for _, start, us, _ in dev]
+    busy = _busy_us(spans)
     by_class = collections.Counter()
     by_name = collections.Counter()
     count = collections.Counter()
-    for name, _, us in dev:
+    for name, _, us, _ in dev:
         by_class[_class(name)] += us
         by_name[name] += us
         count[name] += 1
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                 idle_share=1 - busy / wall_us, activities=len(dev),
+                overlap_ms=_overlap_us(spans) / 1e3,
+                streams=len({stream for *_, stream in dev}),
                 steps=steps, pieces=pieces,
                 by_class={k: v / 1e3 for k, v in by_class.items()},
                 by_name={k: v / 1e3 for k, v in by_name.items()},
@@ -119,7 +143,9 @@ def report(label, r):
           f"({r['activities'] / max(r['steps'], 1):.0f} per step incl. "
           f"prefill); graphs: {r['graphs']['captures']} captured in "
           f"{r['graphs']['capture_s']:.3f}s, {r['graphs']['replays']} steps "
-          f"replayed", flush=True)
+          f"replayed; {r['overlap_ms']:.3f} ms of device time with two "
+          f"activities at once ({r['overlap_ms'] / max(r['steps'], 1):.4f} "
+          f"ms a step) over {r['streams']} stream(s)", flush=True)
     busy = max(r["busy_ms"], 1e-9)
     for name, ms in sorted(r["by_class"].items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}: class {name}: {ms:.2f} ms "

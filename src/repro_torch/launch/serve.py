@@ -35,9 +35,27 @@ in the reference; ``bf16`` and ``int8`` pick the pool's dtype (int8 =
 quantized pages).  ``--tree-kernel sparse`` splits the paged verify into
 the page walk and the tree partial.  Throughput counts REAL emitted tokens
 (``stats["emitted_total"]``), not the EOS padding in the output buffer.
-Weights are random, drawn from ``--seed``.  The flags of later slices
-(``--tree-kernel auto``, HCMP, ``--spec-width``, ``--width 0``,
-checkpoints) exit with a "not yet ported" error.
+Weights are random, drawn from ``--seed``.
+
+ARCA and HCMP (``core/arca.py``, ``core/hcmp/executors.py``):
+
+* ``--width 0`` (ghidorah): ARCA's analytic choice on the paper's Jetson
+  model; ``--spec-width N`` is ``--width N``.
+* ``--spec-width auto`` (ghidorah, ``--arrivals poisson --sched
+  continuous``): MEASURED ARCA.  ``arca.profile_engine`` times the step
+  the engine deploys for widths 1-16 at the serving batch,
+  ``choose_strategy`` picks the start, and the continuous scheduler
+  re-decides the width at chunk boundaries from the observed acceptance.
+* ``--tree-kernel auto`` (``--paged``): ARCA times the dense and the
+  sparse paged verify and takes the faster.
+* ``--hcmp overlap``: the draft of step t+1 runs on a second stream of
+  the card while step t commits (on the CPU, serially); the run is served
+  again on an inline twin engine and exits non-zero on any token mismatch
+  (fixed batch) or any mismatch or leaked page (replay).  ``--hcmp auto``
+  lets ARCA time both partitions and take the faster.
+
+Checkpoints (``--ckpt``, ``--heads-ckpt``) exit with a "not yet ported"
+error.
 """
 from __future__ import annotations
 
@@ -51,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import arca
 from repro_torch.core.speculative import tree as T
 from repro_torch.core.speculative.medusa import init_medusa
 from repro_torch.data.pipeline import MarkovDataset
@@ -58,17 +77,17 @@ from repro_torch.devices import resolve_device
 from repro_torch.models.api import get_model
 from repro_torch.runtime.continuous import (ContinuousScheduler, Request,
                                             poisson_arrivals, serve_static)
-from repro_torch.runtime.engine import BatchEngine, SpeculativeEngine
+from repro_torch.runtime.engine import (BatchEngine, DecodeEngine,
+                                        SpeculativeEngine)
 from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.router import ReplicaRouter
 from repro_torch.runtime.router import replay as router_replay
 from repro_torch.runtime.server import AsyncEngineServer
 
 # flag -> (default, ROADMAP item that ports it)
-_LATER = {
-    "hcmp": ("inline", "A9"), "spec_width": (None, "A9"),
-    "ckpt": (None, "A12"), "heads_ckpt": (None, "A12"),
-}
+_LATER = {"ckpt": (None, "A12"), "heads_ckpt": (None, "A12")}
+# the candidate widths of --spec-width auto, as in the reference
+AUTO_WIDTHS = (1, 2, 4, 8, 16)
 
 
 def parse_args(argv=None):
@@ -77,8 +96,17 @@ def parse_args(argv=None):
     ap.add_argument("--mode", default="ghidorah",
                     choices=["ghidorah", "sequential"])
     ap.add_argument("--width", type=int, default=0,
-                    help="verification width (0 = ARCA's analytic choice, "
-                         "not yet ported)")
+                    help="verification width (0 = let ARCA choose "
+                         "analytically)")
+    ap.add_argument("--spec-width", default=None,
+                    help="verification width: an int (same as --width, "
+                         "takes precedence) or 'auto': MEASURED ARCA, the "
+                         "deployed per-width steps timed on this device "
+                         "(arca.profile_engine), choose_strategy over the "
+                         "measured times, and the continuous scheduler "
+                         "re-deciding the width at chunk boundaries (needs "
+                         "--mode ghidorah --arrivals poisson --sched "
+                         "continuous)")
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--chunk", type=int, default=8,
@@ -143,15 +171,21 @@ def parse_args(argv=None):
                     choices=["dense", "sparse", "auto"],
                     help="paged verify kernel (ghidorah + --paged): dense = "
                          "fused page walk + tree tile; sparse = page walk "
-                         "and tree partial merged by the Eq.-1 rule; auto "
-                         "is not yet ported")
+                         "and tree partial merged by the Eq.-1 rule; auto = "
+                         "ARCA times both per shape and takes the faster")
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="total reservable pages in the shared pool (0 = "
                          "dense-equivalent: batch * pages(max_len))")
-    # flags of later slices: parsed so that they fail with a clear message
     ap.add_argument("--hcmp", default="inline",
-                    choices=["inline", "overlap", "auto"])
-    ap.add_argument("--spec-width", default=None)
+                    choices=["inline", "overlap", "auto"],
+                    help="executor partition of the drafted engine "
+                         "(core/hcmp/executors.py): inline = draft inside "
+                         "the step; overlap = draft(t+1) on a second stream "
+                         "beside commit(t), the run served again on an "
+                         "inline twin and held to its tokens; auto = ARCA "
+                         "times both partitions and takes the faster "
+                         "(ghidorah only)")
+    # flags of later slices: parsed so that they fail with a clear message
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--heads-ckpt", default=None)
     args = ap.parse_args(argv)
@@ -159,14 +193,22 @@ def parse_args(argv=None):
         if getattr(args, name) != default:
             ap.error(f"--{name.replace('_', '-')} is not yet ported to "
                      f"repro_torch (ROADMAP {item})")
-    if args.tree_kernel == "auto":
-        ap.error("--tree-kernel auto (ARCA's measured kernel choice) is not "
-                 "yet ported to repro_torch (ROADMAP A9)")
-    if args.mode == "ghidorah" and args.width == 0:
-        ap.error("--width 0 (the ARCA strategy chooser) is not yet ported "
-                 "to repro_torch (ROADMAP A9); pass --width N")
     if args.width < 0:
-        ap.error("--width must be >= 1")
+        ap.error("--width must be >= 0 (0 = ARCA's analytic choice)")
+    if args.spec_width is not None:
+        if args.mode != "ghidorah":
+            ap.error("--spec-width is a ghidorah option (sequential decoding "
+                     "has no verification width)")
+        if args.spec_width != "auto" and not (
+                args.spec_width.isdigit() and int(args.spec_width) >= 1):
+            ap.error("--spec-width must be 'auto' or a width >= 1")
+        if args.spec_width == "auto" and (args.arrivals == "none"
+                                          or args.sched != "continuous"):
+            ap.error("--spec-width auto needs --arrivals poisson "
+                     "--sched continuous")
+    if args.hcmp != "inline" and args.mode != "ghidorah":
+        ap.error("--hcmp overlap/auto is a ghidorah option (sequential "
+                 "decoding has no draft source to disaggregate)")
     if args.tokens < 1:
         ap.error("--tokens must be >= 1")
     if args.batch < 1:
@@ -204,11 +246,11 @@ def parse_args(argv=None):
                  "scales live on the page axis): add --paged")
     if args.tree_kernel != "dense":
         if not args.paged:
-            ap.error("--tree-kernel sparse splits the PAGED verify path: "
-                     "add --paged")
+            ap.error("--tree-kernel sparse/auto splits the PAGED verify "
+                     "path: add --paged")
         if args.mode != "ghidorah":
-            ap.error("--tree-kernel sparse is a ghidorah option (sequential "
-                     "decoding has no verification tree)")
+            ap.error("--tree-kernel sparse/auto is a ghidorah option "
+                     "(sequential decoding has no verification tree)")
     if _fault_tolerant(args) and (args.arrivals != "poisson"
                                   or args.sched != "continuous"):
         ap.error("--replicas/--deadline-s/--cancel-rate/--inject-faults "
@@ -256,27 +298,149 @@ def prompts(cfg, args) -> np.ndarray:
         np.int32)
 
 
-def build_engine(args, loaded: Loaded):
-    cfg = loaded.cfg
+def _paged_kw(args) -> dict:
     # the reference's quirk: --kv-dtype fp32 means the model's own dtype
-    paged_kw = dict(paged=args.paged, page_size=args.page_size,
-                    pool_pages=args.pool_pages or None,
-                    kv_dtype=None if args.kv_dtype == "fp32"
-                    else args.kv_dtype)
+    return dict(paged=args.paged, page_size=args.page_size,
+                pool_pages=args.pool_pages or None,
+                kv_dtype=None if args.kv_dtype == "fp32" else args.kv_dtype)
+
+
+def _accs(cfg):
+    return T.default_accs(cfg.medusa_heads, cfg.medusa_top_k)
+
+
+def fixed_spec(args, cfg, *, announce=False):
+    """The tree of a fixed-width ghidorah serve: ``--spec-width N`` or
+    ``--width N``, else (``--width 0``) ARCA's analytic choice, printed
+    when ``announce``."""
+    width = int(args.spec_width) if args.spec_width not in (None, "auto") \
+        else args.width
+    accs = _accs(cfg)
+    if width:
+        return T.build_tree(accs, width)
+    strat = arca.best(arca.choose_strategy(cfg, accs, ctx=args.prompt_len))
+    if announce:
+        print(f"[serve] ARCA chose width={strat.width} "
+              f"(E[AL]={strat.acceptance:.2f})")
+    return strat.tree
+
+
+def build_engine(args, loaded: Loaded, spec=None, *, max_len=None):
+    """The engine ``args`` ask for, on ``spec`` (default ``fixed_spec``):
+    the tree kernel and the partition as given (``auto`` builds the dense
+    kernel and the overlap-capable engine, which ARCA then sets).
+    ``max_len`` defaults to prompt + tokens + the tree's depth."""
+    kw = _paged_kw(args)
     if args.mode == "sequential":
         # prompt + budget slots; the sequential driver writes at most
         # prompt + (tokens - 1) entries before every row is done
         return BatchEngine(loaded.model, loaded.params,
                            max_len=args.prompt_len + args.tokens,
-                           chunk=args.chunk, **paged_kw)
-    accs = T.default_accs(cfg.medusa_heads, cfg.medusa_top_k)
-    spec = T.build_tree(accs, args.width)
+                           chunk=args.chunk, **kw)
+    spec = spec or fixed_spec(args, loaded.cfg)
     # one speculative step past the budget can commit up to max_depth
     # tokens, so size the ring for the worst-case overshoot
-    return SpeculativeEngine(loaded.model, loaded.heads, loaded.params, spec,
-                             max_len=args.prompt_len + args.tokens
-                             + spec.max_depth, chunk=args.chunk,
-                             tree_kernel=args.tree_kernel, **paged_kw)
+    return SpeculativeEngine(
+        loaded.model, loaded.heads, loaded.params, spec,
+        max_len=max_len or args.prompt_len + args.tokens + spec.max_depth,
+        chunk=args.chunk,
+        hcmp="inline" if args.hcmp == "inline" else "overlap",
+        tree_kernel="sparse" if args.tree_kernel == "sparse" else "dense",
+        **kw)
+
+
+def twin(loaded: Loaded, eng, strategy=None, **over):
+    """A fresh engine configured like ``eng`` (strategy, sizes, pool, tree
+    kernel, partition), with ``over`` replacing any of its keywords: the
+    router's other replicas and the overlap gate's inline engine."""
+    kw = dict(max_len=eng.max_len, chunk=eng.chunk, paged=eng.paged,
+              page_size=eng.page_size, pool_pages=eng.pool_pages,
+              kv_dtype=eng.kv_dtype, tree_kernel=eng.tree_kernel,
+              hcmp=eng.hcmp)
+    kw.update(over)
+    return DecodeEngine(loaded.model, loaded.params, heads=eng.heads,
+                        strategy=strategy or eng.strategy, **kw)
+
+
+def prepare(args, loaded: Loaded):
+    """The serving engine with every choice the flags leave to ARCA made,
+    and the adaptive strategy table (``--spec-width auto``) or None.
+    Prints each choice as the reference does."""
+    cfg = loaded.cfg
+    if args.mode == "sequential":
+        return build_engine(args, loaded), None
+    accs = _accs(cfg)
+    adaptive = None
+    if args.spec_width == "auto":
+        # measured ARCA + runtime-adaptive speculation: time the deployed
+        # per-width steps here, start at the measured argmax, and let the
+        # scheduler re-decide at chunk boundaries.  The ring is sized for
+        # the DEEPEST candidate: a switch must never outgrow a row
+        specs = {w: T.candidate_spec(accs, w) for w in AUTO_WIDTHS}
+        depth = max(sp.max_depth for sp in specs.values())
+        eng = build_engine(args, loaded, specs[max(AUTO_WIDTHS)],
+                           max_len=args.prompt_len + args.tokens + depth)
+        _print_executors(args, eng)
+        time_fn = arca.profile_engine(
+            eng, AUTO_WIDTHS, accs=accs, batch=args.batch,
+            prompt_len=args.prompt_len,
+            tree_kernels=("dense", "sparse")
+            if args.tree_kernel == "auto" else None)
+        adaptive = arca.choose_strategy(cfg, accs, ctx=args.prompt_len,
+                                        time_fn=time_fn, widths=AUTO_WIDTHS)
+        start = arca.best(adaptive)
+        print(f"[serve] measured ARCA: start width={start.width} "
+              f"(E[AL]={start.acceptance:.2f}, "
+              f"step {start.step_time * 1e3:.2f} ms)")
+        eng.set_strategy(start.tree)
+        if args.tree_kernel == "auto":
+            print(f"[serve] tree kernel: {start.tree_kernel} "
+                  f"(measured winner for width {start.width})")
+            eng.set_tree_kernel(start.tree_kernel)
+        if args.hcmp != "inline":
+            part = "overlap" if args.hcmp == "overlap" else start.hcmp
+            print(f"[serve] hcmp partition: {part} "
+                  f"(measured winner for width {start.width}: "
+                  f"{start.hcmp})")
+            eng.set_hcmp(part)
+        return eng, adaptive
+    spec = fixed_spec(args, cfg, announce=True)
+    eng = build_engine(args, loaded, spec)
+    _print_executors(args, eng)
+    if args.hcmp == "auto" or args.tree_kernel == "auto":
+        # measure the partition / verify kernel for THIS shape on THIS
+        # device at the serving batch and keep the faster
+        modes = {"auto": ("inline", "overlap"), "overlap": ("overlap",),
+                 "inline": ("inline",)}[args.hcmp]
+        tks = ("dense", "sparse") if args.tree_kernel == "auto" \
+            else (args.tree_kernel,)
+        tf = arca.profile_engine(eng, (spec.width,), accs=accs,
+                                 batch=args.batch, prompt_len=args.prompt_len,
+                                 hcmp_modes=modes, tree_kernels=tks)
+        key = (spec.width, spec.max_depth, spec.n_paths, args.batch)
+        if args.hcmp == "auto":
+            part = tf.partition_for(spec)
+            print(f"[serve] measured partition: {part} "
+                  f"(inline {tf.times[key + ('inline',)] * 1e3:.2f} ms, "
+                  f"overlap {tf.times[key + ('overlap',)] * 1e3:.2f} ms "
+                  f"per step)")
+            eng.set_hcmp(part)
+        if args.tree_kernel == "auto":
+            tk = tf.kernel_for(spec)
+            mode = tf.partition_for(spec)
+            print(f"[serve] measured tree kernel: {tk} (dense "
+                  f"{tf.times[key + (mode, 'dense')] * 1e3:.2f} ms, sparse "
+                  f"{tf.times[key + (mode, 'sparse')] * 1e3:.2f} ms "
+                  f"per step)")
+            eng.set_tree_kernel(tk)
+    return eng, None
+
+
+def _print_executors(args, eng):
+    if args.hcmp != "inline":
+        v, d = eng.hcmp_executors
+        note = " (one serial executor: no overlap)" if v == d else ""
+        print(f"[serve] hcmp {args.hcmp}: verify on {v}, draft on {d}{note}")
 
 
 def requests(cfg, args):
@@ -290,18 +454,28 @@ def requests(cfg, args):
             for i in range(args.requests)]
 
 
-def _replay(args, loaded, eng) -> dict:
+def _scheduler(args, eng, adaptive=None, faults=None):
+    return ContinuousScheduler(
+        eng, batch=args.batch, chunk=args.chunk, policy=args.policy,
+        prefill_chunk=args.prefill_chunk, age_limit=args.age_limit,
+        adaptive=adaptive, faults=faults)
+
+
+def _replay(args, loaded, eng, adaptive=None) -> dict:
     """Arrival replay through the continuous or the static scheduler, in
     process; prints the reference's summary line."""
     reqs = requests(loaded.cfg, args)
     if args.sched == "continuous":
-        results, stats = ContinuousScheduler(
-            eng, batch=args.batch, chunk=args.chunk, policy=args.policy,
-            prefill_chunk=args.prefill_chunk,
-            age_limit=args.age_limit).serve(reqs)
+        results, stats = _scheduler(args, eng, adaptive).serve(reqs)
         label = f"{args.sched}/{stats['policy']}"
         if stats["prefill_chunk"]:
             label += f"+pc{stats['prefill_chunk']}"
+        if adaptive is not None:
+            label += "/adaptive"
+            sw = stats["strategy_switches"]
+            print(f"[serve] adaptive: width {stats['width_final']} at drain, "
+                  f"{len(sw)} switch(es)"
+                  + (f" {[(x['from'], x['to']) for x in sw]}" if sw else ""))
     else:
         results, stats = serve_static(eng, reqs, batch=args.batch)
         label = args.sched
@@ -318,13 +492,13 @@ def _replay(args, loaded, eng) -> dict:
             "engines": [eng]}
 
 
-def _replay_async(args, loaded, eng) -> dict:
+def _replay_async(args, loaded, eng, adaptive=None) -> dict:
     """Fault-tolerant replay: the arrival stream flows through
     ``--replicas`` servers behind the router (replica r0 serves on ``eng``,
-    the others on fresh engines over the same weights); with
-    ``--inject-faults`` the seeded chaos plan crashes r0 at its 6th
-    boundary, stalls chunks and blocks admissions.  Exits non-zero unless
-    every request is terminal and no replica leaked pages."""
+    the others on fresh engines configured like it, over the same
+    weights); with ``--inject-faults`` the seeded chaos plan crashes r0 at
+    its 6th boundary, stalls chunks and blocks admissions.  Exits non-zero
+    unless every request is terminal and no replica leaked pages."""
     reqs = requests(loaded.cfg, args)
     plan = None
     if args.inject_faults is not None:
@@ -334,15 +508,12 @@ def _replay_async(args, loaded, eng) -> dict:
                          cancel_rate=args.cancel_rate)
     elif args.cancel_rate > 0:
         plan = FaultPlan(seed=args.seed, cancel_rate=args.cancel_rate)
-    engines = [eng] + [build_engine(args, loaded)
-                       for _ in range(args.replicas - 1)]
+    engines = [eng] + [twin(loaded, eng) for _ in range(args.replicas - 1)]
     servers = []
     for i, e in enumerate(engines):
         name = f"r{i}"
-        sched = ContinuousScheduler(
-            e, batch=args.batch, chunk=args.chunk, policy=args.policy,
-            prefill_chunk=args.prefill_chunk, age_limit=args.age_limit,
-            faults=plan.injector(name) if plan is not None else None)
+        sched = _scheduler(args, e, adaptive,
+                           plan.injector(name) if plan is not None else None)
         servers.append(AsyncEngineServer(sched, name=name,
                                          queue_limit=args.queue_limit))
     router = ReplicaRouter(
@@ -377,18 +548,64 @@ def _replay_async(args, loaded, eng) -> dict:
             "engines": engines, "drained": drained}
 
 
-def run(args, loaded: Optional[Loaded] = None, engine=None) -> dict:
+def _gate_line(eng) -> str:
+    hs = eng.hcmp_stats or {}
+    return (f"predraft hits {hs.get('predraft_hits', 0)} / discards "
+            f"{hs.get('predraft_discards', 0)} over {hs.get('chunks', 0)} "
+            f"chunks on {hs.get('executors', 1)} executor(s)")
+
+
+def _hcmp_gate(args, loaded, eng, results, inline, adaptive=None) -> dict:
+    """--hcmp overlap replay gate: serve the SAME arrival stream on the
+    inline engine ``inline`` and require equal per-request tokens, plus a
+    leak-free drained pool on the overlap engine.  Exits non-zero on any
+    parity or leak failure."""
+    leak = not (eng.sched_pool_conserved() and eng.sched_drained())
+    if args.sched == "continuous":
+        ref, stats = _scheduler(args, inline, adaptive).serve(
+            requests(loaded.cfg, args))
+    else:
+        ref, stats = serve_static(inline, requests(loaded.cfg, args),
+                                  batch=args.batch)
+    bad = [r.req_id for r, q in zip(results, ref)
+           if not np.array_equal(r.tokens, q.tokens)]
+    print(f"[serve] hcmp overlap gate: parity "
+          f"{'OK' if not bad else 'FAIL ' + str(bad)}, "
+          f"pages {'LEAKED' if leak else 'OK'}; {_gate_line(eng)}")
+    if bad or leak:
+        raise SystemExit(f"[serve] HCMP OVERLAP VIOLATION: overlapped "
+                         f"draft/verify diverged from the inline engine "
+                         f"(mismatched req ids {bad}, leaked pages: "
+                         f"{leak})")
+    return {"results": ref, "stats": stats, "engine": inline}
+
+
+def run(args, loaded: Optional[Loaded] = None, engine=None,
+        adaptive=None, gate: bool = True) -> dict:
     """Serve once and print the reference's summary line.  The fixed batch
     returns the tokens, the engine's stats, the wall time and the engine;
     a replay returns its results, stats, requests and engines.  ``engine``
-    reuses an engine of ``build_engine(args, loaded)`` (its captured chunk
-    graphs included) instead of building one."""
+    (with its ``adaptive`` table) reuses an engine of ``prepare(args,
+    loaded)`` (its captured chunk graphs included) instead of preparing
+    one.  With ``--hcmp overlap`` (and ``gate``) the run is served again
+    on an inline twin, whose run the result holds under ``"inline"``."""
     loaded = loaded or load(args)
-    eng = engine if engine is not None else build_engine(args, loaded)
+    if engine is None:
+        engine, adaptive = prepare(args, loaded)
+    eng = engine
+    gate = gate and args.hcmp == "overlap" and eng.hcmp == "overlap"
+    # the inline twin starts where this engine starts (an adaptive run
+    # switches the engine's strategy as it goes)
+    start = eng.strategy
     if args.arrivals != "none":
         if _fault_tolerant(args):
-            return _replay_async(args, loaded, eng)
-        return _replay(args, loaded, eng)
+            return _replay_async(args, loaded, eng, adaptive)
+        res = _replay(args, loaded, eng, adaptive)
+        if gate:
+            res["inline"] = _hcmp_gate(
+                args, loaded, eng, res["results"],
+                twin(loaded, eng, start, hcmp="inline"), adaptive)
+        return res
     batch = {"tokens": prompts(loaded.cfg, args)}
     if loaded.device.type == "cuda":
         torch.cuda.synchronize(loaded.device)
@@ -406,8 +623,27 @@ def run(args, loaded: Optional[Loaded] = None, engine=None) -> dict:
               f"({n_out / dt:.1f} tok/s), "
               f"acceptance length {stats['acceptance_length']:.2f} "
               f"over {stats['steps']} seq-steps")
-    return {"out": out, "stats": stats, "seconds": dt,
-            "prompts": batch["tokens"], "engines": [eng]}
+    res = {"out": out, "stats": stats, "seconds": dt,
+           "prompts": batch["tokens"], "engines": [eng]}
+    if gate:
+        # fixed-batch parity gate: the overlapped schedule must emit the
+        # exact token stream of the inline engine
+        inline = twin(loaded, eng, start, hcmp="inline")
+        if loaded.device.type == "cuda":
+            torch.cuda.synchronize(loaded.device)
+        t0 = time.perf_counter()
+        ref_out, ref_stats = inline.generate(batch, args.tokens)
+        ref_s = time.perf_counter() - t0
+        ok = np.array_equal(np.asarray(out), np.asarray(ref_out))
+        print(f"[serve] hcmp overlap gate: parity "
+              f"{'OK' if ok else 'FAIL'}; {_gate_line(eng)}")
+        if not ok:
+            raise SystemExit("[serve] HCMP OVERLAP VIOLATION: overlapped "
+                             "draft/verify diverged from the inline "
+                             "engine on the fixed batch")
+        res["inline"] = {"out": ref_out, "stats": ref_stats,
+                         "seconds": ref_s, "engine": inline}
+    return res
 
 
 def main(argv=None):

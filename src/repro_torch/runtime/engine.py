@@ -51,8 +51,19 @@ instead, and the CPU always does: there the tests drive the graphs'
 static-buffer step without capture (``ChunkGraphs(..., capture=False)``).
 ``time_step`` times the deployed chunk (the replay, on the card) and
 ``measure_acceptance`` reuses one engine across same-shape trees, as in
-the reference.  The HCMP overlap runner comes with a later slice (ROADMAP
-A9); ``hcmp`` other than ``"inline"`` raises ``NotImplementedError``.
+the reference.
+
+HCMP executor split (``hcmp="overlap"``, ``core/hcmp/executors.py``): the
+chunks of a drafted strategy go through the overlap runner, which drafts
+step t+1 on a second stream of the card while step t commits (on the CPU
+the same phases run serially); on the card it replays the overlapped step
+captured with both streams.  Its tokens are the inline engine's.  The
+bank epoch versions the resident state: every mutation (admission, reset,
+extend, a strategy, partition or kernel switch, a new ``generate`` or
+``time_step`` stream) bumps it, so a pre-draft made before it is
+discarded and redrafted.  ``time_step(hcmp=...)`` times either partition
+and ``core/arca.py``'s ``profile_engine`` records the measured choice on
+``Strategy.hcmp``.
 """
 from __future__ import annotations
 
@@ -160,6 +171,10 @@ class DecodeStrategy:
     width: int
     draft: str                   # "medusa" | "none"
     tree: Tree
+
+    def shape(self) -> tuple:
+        """Shape bucket: same-shape strategies share a captured step."""
+        return (self.draft,) + self.tree.shape()
 
     @staticmethod
     def sequential(device) -> "DecodeStrategy":
@@ -446,6 +461,7 @@ class _PagedPoolMixin:
         row's offset.  Returns (state, the last real token as a device
         scalar: after the final piece it is the request's first
         emission)."""
+        self._touch_bank()
         C = int(tokens.shape[1])
         if C not in self._extend_trees:
             self._extend_trees[C] = Tree.from_spec(chain_spec(C),
@@ -468,9 +484,6 @@ class DecodeEngine(_PagedPoolMixin):
                  = None, heads=None, max_len=512, window=0, chunk=8,
                  paged=False, page_size=16, pool_pages=None, hcmp="inline",
                  kv_dtype=None, tree_kernel="dense"):
-        if hcmp != "inline":
-            raise NotImplementedError(f"hcmp={hcmp!r}: the HCMP executor "
-                                      "split is not yet ported (ROADMAP A9)")
         self.device = params["embed"].device
         if strategy is None:
             if heads is not None:
@@ -490,6 +503,13 @@ class DecodeEngine(_PagedPoolMixin):
         self.kv_dtype = kv_dtype
         self.model, self.params, self.heads = model, params, heads
         self.strategy = strategy
+        # HCMP executor split: "overlap" routes drafted chunks through the
+        # runner, built lazily on the engine's executor pair (its draft
+        # stream outlives a runner rebuilt for another tree kernel)
+        self._hcmp_runner = None
+        self._executors = None
+        self._bank_epoch = 0
+        self.set_hcmp(hcmp)
         self._registered: Dict[int, DecodeStrategy] = {}
         self._registered_depth = 0
         self.max_len, self.window = max_len, window
@@ -543,7 +563,62 @@ class DecodeEngine(_PagedPoolMixin):
             raise ValueError("tree_kernel='sparse' splits the PAGED verify "
                              "path (page walk + tree partial); dense caches "
                              "use the fused kernel: pass paged=True")
-        self.tree_kernel = mode
+        if mode != getattr(self, "tree_kernel", None):
+            self.tree_kernel = mode
+            self._hcmp_runner = None     # the runner runs the old kernel
+        self._touch_bank()
+
+    # ---- HCMP executor split (core/hcmp/executors.py) --------------------
+    @property
+    def hcmp_capable(self) -> bool:
+        """Whether this engine can run the overlap schedule (it needs a
+        draft source to put on the second executor)."""
+        return self.heads is not None
+
+    def set_hcmp(self, mode: str) -> None:
+        """Switch the executor partition between chunks ("inline" |
+        "overlap"); bumps the bank epoch so a pre-draft made under the
+        other schedule is discarded."""
+        if mode not in ("inline", "overlap"):
+            raise ValueError(f"hcmp must be 'inline' or 'overlap', "
+                             f"got {mode!r}")
+        if mode == "overlap" and not self.hcmp_capable:
+            raise ValueError("hcmp='overlap' needs a drafted strategy: a "
+                             "sequential engine has no draft source to "
+                             "disaggregate")
+        self.hcmp = mode
+        self._touch_bank()
+
+    def _touch_bank(self) -> None:
+        """Version the resident bank: called by every mutation that makes
+        a cross-chunk pre-draft stale (admission, insert, reset, extend, a
+        strategy, partition or kernel switch, a new generate/time_step
+        stream)."""
+        self._bank_epoch += 1
+
+    def _hcmp(self):
+        if self._hcmp_runner is None:
+            from repro_torch.core.hcmp.executors import (HcmpOverlapRunner,
+                                                         executor_pair)
+            if self._executors is None:
+                self._executors = executor_pair(self.device)
+            self._hcmp_runner = HcmpOverlapRunner(
+                self.model, self.heads, tree_kernel=self.tree_kernel,
+                executors=self._executors)
+        return self._hcmp_runner
+
+    @property
+    def hcmp_executors(self) -> tuple:
+        """Names of the overlap runner's (verify, draft) executors."""
+        st = self._hcmp().stats
+        return st["verify_executor"], st["draft_executor"]
+
+    @property
+    def hcmp_stats(self) -> Optional[dict]:
+        """Overlap-runner counters (None until the runner exists)."""
+        if self._hcmp_runner is None:
+            return None
+        return dict(self._hcmp_runner.stats, mode=self.hcmp)
 
     # ---- strategy axis ---------------------------------------------------
     def strategy_for(self, spec: TreeSpec) -> DecodeStrategy:
@@ -573,6 +648,7 @@ class DecodeEngine(_PagedPoolMixin):
                              f"{self.strategy.draft!r} -> {strategy.draft!r}"
                              " (the state carry differs)")
         self.strategy = strategy
+        self._touch_bank()
 
     def register_strategies(self, specs) -> Dict[int, DecodeStrategy]:
         """Arm a candidate set for runtime switching: builds the
@@ -602,10 +678,17 @@ class DecodeEngine(_PagedPoolMixin):
     def _run_chunk(self, K, strategy, state, done, rem, eos_val):
         """K steps on the device, no host sync: replays of the captured
         step on a CUDA device (``runtime/graphs.py``), else (the CPU, or
-        inside ``eager()``) the steps op by op.  The carry passed in is
-        consumed.  Returns (state, done, rem, toks (K, B, Dmax) eos-padded,
-        ns (K, B) emitted counts)."""
-        if self._graphed and not _EAGER.depth:
+        inside ``eager()``) the steps op by op; a drafted strategy in
+        overlap mode goes through the HCMP runner, graphed or op by op
+        alike.  The carry passed in is consumed.  Returns (state, done,
+        rem, toks (K, B, Dmax) eos-padded, ns (K, B) emitted counts)."""
+        graphed = self._graphed and not _EAGER.depth
+        if self.hcmp == "overlap" and strategy.draft == "medusa":
+            self._graphs.last = "eager"
+            return self._hcmp().run_chunk(
+                self.params, strategy, state, done, rem, K, eos_val,
+                self._bank_epoch, graphs=self._graphs if graphed else None)
+        if graphed:
             return self._graphs.run(K, strategy, state, done, rem, eos_val,
                                     self.tree_kernel, self._eager_chunk)
         self._graphs.last = "eager"
@@ -626,6 +709,7 @@ class DecodeEngine(_PagedPoolMixin):
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B = int(tokens.shape[0])
         budget = _budget(n_tokens, B)
+        self._touch_bank()            # new stream: stale pre-drafts die
         if self.paged:
             tables, n_total = self._reserve_tables(B, int(tokens.shape[1]),
                                                    budget)
@@ -708,20 +792,21 @@ class DecodeEngine(_PagedPoolMixin):
         captured step (the strategy's tree is copied into the graph's
         static tree), so the timed function is exactly the deployed one.
         Timed at the serving cadence (``chunk`` steps per sync, divided
-        out).  ``tree_kernel`` ("dense" | "sparse") overrides the paged
-        verify kernel for the measurement and is restored after it; the
-        engine's strategy is never changed.  ``hcmp`` other than None or
-        "inline" raises: the executor split is not yet ported (ROADMAP
-        A9)."""
-        if hcmp not in (None, "inline"):
-            raise NotImplementedError(f"hcmp={hcmp!r}: the HCMP executor "
-                                      "split is not yet ported (ROADMAP A9)")
+        out).  ``hcmp`` ("inline" | "overlap") and ``tree_kernel``
+        ("dense" | "sparse") override the executor partition and the paged
+        verify kernel for the measurement and are restored after it; the
+        engine's strategy is never changed.  The measurement's graphs are
+        released once it is timed: each holds the dummy prompt's cache."""
         strategy = strategy or self.strategy
         K = chunk or self.chunk
-        prev_tk = self.tree_kernel
+        prev_hcmp, prev_tk = self.hcmp, self.tree_kernel
+        if hcmp is not None:
+            self.set_hcmp(hcmp)
         if tree_kernel is not None:
             self.set_tree_kernel(tree_kernel)
+        state = None
         try:
+            self._touch_bank()        # measurement stream, not the bank
             tokens = torch.zeros((batch, prompt_len), dtype=torch.int32,
                                  device=self.device)
             if self.paged:
@@ -757,6 +842,10 @@ class DecodeEngine(_PagedPoolMixin):
                 best = min(best, time.perf_counter() - t0)
             return best / K
         finally:
+            if state is not None:
+                self._graphs.release(state)
+            if hcmp is not None:
+                self.set_hcmp(prev_hcmp)
             if tree_kernel is not None:
                 self.set_tree_kernel(prev_tk)
 
@@ -789,6 +878,7 @@ class DecodeEngine(_PagedPoolMixin):
         """The resident bank of ``batch`` rows, bootstrapped from the first
         admission's prefill: a fresh page pool (and allocator) when paged,
         the prefilled row repeated when dense."""
+        self._touch_bank()
         if self.paged:
             n_total = self.pool_pages or batch * self.max_pages
             self._alloc = PageAllocator(n_total)
@@ -807,6 +897,7 @@ class DecodeEngine(_PagedPoolMixin):
                          hidden=hid)
 
     def sched_insert(self, state, b, row, *, prompt_len=None, n_tokens=None):
+        self._touch_bank()
         if self.paged:
             pages = self._sched_pages(b, prompt_len, n_tokens)
             return _insert_row(state, int(b), row, pages=pages)
@@ -819,6 +910,7 @@ class DecodeEngine(_PagedPoolMixin):
         ``reserve_len`` overrides the page reservation's prompt length:
         chunked prefill admits only the FIRST piece here but reserves for
         the whole prompt."""
+        self._touch_bank()
         pages = None
         if self.paged:
             plen = reserve_len if reserve_len is not None \
@@ -828,6 +920,7 @@ class DecodeEngine(_PagedPoolMixin):
         return _insert_row(state, int(b), row, pages=pages), row.cur_token[0]
 
     def sched_reset(self, state, b):
+        self._touch_bank()
         mask = np.zeros((int(state.cur_token.shape[0]),), bool)
         mask[b] = True
         return _reset_state_rows(state, mask)

@@ -42,9 +42,22 @@ while capturing counts into the graph's ``CaptureTally``, which every
 replay adds to the wrappers' counts.  A failed capture or replay raises;
 nothing falls back to the eager loop.
 
+The HCMP overlap step (``core/hcmp/executors.py``) is captured the same
+way under its own key (the key's partition is "overlap"): its draft tree
+tokens are one more static buffer of the carry, read by the step's verify
+and written by its draft.  The capture forks the draft stream off the
+capture stream after the verify and joins it after the commit, so the
+graph holds two concurrent branches (a capture whose forked stream is not
+joined fails as unjoined).  The runner hands the chunk its first draft:
+the pre-draft left in the static buffer by the previous chunk, or one
+drafted anew when the bank moved (a stale pre-draft is never reused).
+
+``release(state)`` drops the graphs that adopted ``state``'s K/V:
+``time_step`` releases its measurement's graphs once timed.
+
 ``ChunkGraphs(..., capture=False)`` runs the same static-buffer step
 without capture, one call a replay: the CPU tests drive the bookkeeping
-through it.
+through it, the overlap step's included.
 """
 from __future__ import annotations
 
@@ -99,10 +112,12 @@ class StepGraph:
     """One decode step on static buffers, captured (or, without capture,
     called once a replay).  ``step_fn(strategy, state, done, rem, eos,
     tree_kernel)`` is the engine's step: it returns ``(state, done, rem,
-    emitted (B, D), n (B,))``."""
+    emitted (B, D), n (B,))``.  With ``tree_tokens`` it is the overlap
+    step, ``step_fn(..., tree_kernel, tree_tokens, out)``, which also
+    returns the next draft, written into ``out``."""
 
     def __init__(self, step_fn: Callable, strategy, state: SpecState, done,
-                 rem, eos_val: int, tree_kernel: str):
+                 rem, eos_val: int, tree_kernel: str, tree_tokens=None):
         kv = state.cache.kv
         self.step_fn, self.tree_kernel = step_fn, tree_kernel
         self.layout = type(kv)
@@ -122,6 +137,7 @@ class StepGraph:
         self.rem.copy_(rem)
         self.eos_val = int(eos_val)
         self.eos = torch.full((), self.eos_val, dtype=torch.int64, device=dev)
+        self.tree_tokens = _clone(tree_tokens)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally = CaptureTally()
         self.emitted = self.n = None
@@ -133,9 +149,13 @@ class StepGraph:
         from it.  Returns the step's ``(emitted, n)``."""
         state = SpecState(cache=Cache(kv=self.kv), cur_token=self.cur_token,
                           hidden=self.hidden)
-        state, done, rem, emitted, n = self.step_fn(
-            self.strategy, state, self.done, self.rem, self.eos,
-            self.tree_kernel)
+        args = (self.strategy, state, self.done, self.rem, self.eos,
+                self.tree_kernel)
+        if self.tree_tokens is None:
+            state, done, rem, emitted, n = self.step_fn(*args)
+        else:
+            state, done, rem, emitted, n, _ = self.step_fn(
+                *args, self.tree_tokens, out=self.tree_tokens)
         kv = state.cache.kv
         for f in _BIG[self.layout]:
             if getattr(kv, f) is not getattr(self.kv, f):
@@ -156,10 +176,12 @@ class StepGraph:
         return type(kv) is self.layout and all(
             getattr(kv, f) is getattr(self.kv, f) for f in _BIG[self.layout])
 
-    def load(self, strategy, state: SpecState, done, rem, eos_val) -> None:
+    def load(self, strategy, state: SpecState, done, rem, eos_val,
+             tree_tokens=None) -> None:
         """Copy what the host changed since the last replay into the
         static inputs: the tree (a same-shape tree), the small cache
-        tensors, the carry, ``done``/``rem`` and EOS."""
+        tensors, the carry, ``done``/``rem``, EOS and the overlap step's
+        first draft."""
         if strategy.tree is not self.tree_src:
             for f in _TREE:
                 _copy_in(getattr(self.tree, f), getattr(strategy.tree, f),
@@ -172,6 +194,8 @@ class StepGraph:
         _copy_in(self.hidden, state.hidden, "hidden")
         _copy_in(self.done, done, "done", cast=True)
         _copy_in(self.rem, rem, "rem", cast=True)
+        if self.tree_tokens is not None:
+            _copy_in(self.tree_tokens, tree_tokens, "tree_tokens")
         if int(eos_val) != self.eos_val:
             self.eos.fill_(int(eos_val))
             self.eos_val = int(eos_val)
@@ -237,10 +261,12 @@ class ChunkGraphs:
         return len(self._graphs)
 
     @staticmethod
-    def key(strategy, state: SpecState, done, tree_kernel) -> tuple:
+    def key(strategy, state: SpecState, done, tree_kernel,
+            partition="inline") -> tuple:
         kv = state.cache.kv
         fields = _SMALL[type(kv)] + _BIG[type(kv)]
-        return (strategy.draft, tree_kernel, type(kv).__name__, kv.window,
+        return (partition, strategy.draft, tree_kernel, type(kv).__name__,
+                kv.window,
                 getattr(kv, "page_size", 0),
                 strategy.tree.width, strategy.tree.max_depth,
                 tuple(_signature(getattr(strategy.tree, f)) for f in _TREE),
@@ -266,9 +292,10 @@ class ChunkGraphs:
         cur.wait_stream(side)
         return out
 
-    def _build(self, strategy, state, done, rem, eos_val, tree_kernel):
-        g = StepGraph(self.step_fn, strategy, state, done, rem, eos_val,
-                      tree_kernel)
+    def _build(self, step_fn, strategy, state, done, rem, eos_val,
+               tree_kernel, tree_tokens):
+        g = StepGraph(step_fn, strategy, state, done, rem, eos_val,
+                      tree_kernel, tree_tokens)
         if self.capture:
             side = self._side()
             reserved = torch.cuda.memory_reserved(self.device)
@@ -287,29 +314,36 @@ class ChunkGraphs:
         return g
 
     def run(self, K, strategy, state, done, rem, eos_val, tree_kernel,
-            eager_chunk):
+            eager_chunk, overlap=None):
         """One K-step chunk: ``eager_chunk(K, strategy, state, done, rem,
         eos_val)`` at a key's first chunk, else K replays of its graph.
         Returns what the eager chunk returns: ``(state, done, rem, toks (K,
-        B, D), ns (K, B))``."""
-        key = self.key(strategy, state, done, tree_kernel)
+        B, D), ns (K, B))``.  ``overlap=(step_fn, tree_tokens)`` runs the
+        HCMP overlap step from the first draft ``tree_tokens``: then the
+        eager chunk takes the draft last, and both return the dangling
+        draft last (on the graph path, the graph's static buffer)."""
+        step_fn, tree_tokens = overlap or (self.step_fn, None)
+        partition = "inline" if overlap is None else "overlap"
+        extra = () if overlap is None else (tree_tokens,)
+        key = self.key(strategy, state, done, tree_kernel, partition)
         if key not in self._warm:
             out = self._warm_up(eager_chunk, K, strategy, state, done, rem,
-                                eos_val)
+                                eos_val, *extra)
             self._warm.add(key)
             self.stats["warmup_steps"] += K
             self.last = "warm-up"
             return out
         g = self._graphs.get(key)
         if g is not None and g.holds(state):
-            g.load(strategy, state, done, rem, eos_val)
+            g.load(strategy, state, done, rem, eos_val, *extra)
             self.last = "replay"
         else:
             # the key's old graph (and its adopted K/V) stays alive through
             # the new capture, which keeps the shared pool in use (a pool
             # whose graphs are all gone cannot take another capture), and
             # is destroyed outside any capture
-            g = self._build(strategy, state, done, rem, eos_val, tree_kernel)
+            g = self._build(step_fn, strategy, state, done, rem, eos_val,
+                            tree_kernel, tree_tokens)
             with _CAPTURE_LOCK:
                 old = self._graphs.pop(key, None)
                 self._graphs[key] = g
@@ -324,4 +358,15 @@ class ChunkGraphs:
             toks[i].copy_(g.emitted)
             ns[i].copy_(g.n)
         self.stats["replays"] += K
-        return g.state(), g.done, g.rem, toks, ns
+        out = (g.state(), g.done, g.rem, toks, ns)
+        return out if overlap is None else out + (g.tree_tokens,)
+
+    def release(self, state: SpecState) -> None:
+        """Drop the graphs that adopted ``state``'s K/V (their memory goes
+        back to the allocator).  When no graph is left the pool is
+        replaced: a pool whose graphs are all gone takes no capture."""
+        with _CAPTURE_LOCK:
+            for key in [k for k, g in self._graphs.items() if g.holds(state)]:
+                del self._graphs[key]
+            if self.capture and not self._graphs and self._pool is not None:
+                self._pool = torch.cuda.graph_pool_handle()

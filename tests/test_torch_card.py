@@ -330,3 +330,138 @@ def test_graphed_chunk_equals_eager_on_card(label):
                                                            args.tokens)
     for out in outs:
         np.testing.assert_array_equal(out, ref)
+
+
+# the overlap partition's card tests: the four drafted modes above and the
+# paged pool in the model's dtype
+OVERLAP_MODES = {label: GRAPH_MODES[label] for label in
+                 ("dense ghidorah", "paged bf16", "paged int8",
+                  "int8 sparse")}
+OVERLAP_MODES["paged fp32"] = ("ghidorah", ["--paged"],
+                               ("paged_tree_attention",))
+
+
+def _overlap_args(flags, hcmp="overlap"):
+    from repro_torch.launch import serve
+    return serve.parse_args(
+        ["--arch", "qwen2-0.5b-smoke", "--mode", "ghidorah", "--width", "8",
+         "--batch", "3", "--prompt-len", "24", "--tokens", "20",
+         "--chunk", "4", "--page-size", "8", "--hcmp", hcmp] + flags)
+
+
+def _loaded(args):
+    from repro_torch.launch import serve
+    if not _LOADED:
+        _LOADED["m"] = serve.load(args, with_heads=True)
+    return _LOADED["m"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(OVERLAP_MODES))
+def test_overlap_graph_equals_inline_on_card(label):
+    """The overlapped step captured with its draft on a second stream:
+    over two ``generate`` calls its replays give exactly the inline
+    engine's tokens (graphed and eager), each forward is counted once per
+    layer through the replays' tallies, and the pre-draft carries over the
+    quiet chunk boundaries."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
+    _need_gpu()
+    _, flags, kernels = OVERLAP_MODES[label]
+    args = _overlap_args(flags)
+    loaded = _loaded(args)
+    batch = {"tokens": serve.prompts(loaded.cfg, args)}
+    wrappers = chip_smoke.kernel_wrappers()
+    over = serve.build_engine(args, loaded)
+    assert over.hcmp == "overlap"
+    for w in wrappers.values():
+        w.launches = 0
+    outs, steps = [], 0
+    for _ in range(2):
+        out, stats = over.generate(batch, args.tokens)
+        outs.append(out)
+        steps += stats["device_steps"]
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    want = loaded.cfg.num_layers * steps
+    assert counts == {name: want if name in kernels else 0
+                      for name in wrappers}, (counts, want)
+    gs = over.graph_stats
+    assert gs["captures"] == 2 and gs["replays"] > 0 and gs["graphs"] == 1
+    assert all(k[0] == "overlap" for k in over._graphs._graphs)
+    hs = over.hcmp_stats
+    assert hs["executors"] == 2 and hs["predraft_hits"] > 0
+    inline = serve.build_engine(_overlap_args(flags, "inline"), loaded)
+    ref, _ = inline.generate(batch, args.tokens)
+    with eager():
+        ref_eager, _ = serve.build_engine(
+            _overlap_args(flags, "inline"), loaded).generate(batch,
+                                                             args.tokens)
+    np.testing.assert_array_equal(ref, ref_eager)
+    for out in outs:
+        np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_overlap_capture_two_replica_threads_on_card():
+    """Two overlap engines (replicas over one set of weights) capture and
+    replay at once from two threads, each with its own draft stream: no
+    capture is voided by the other thread's work, and each thread's tokens
+    equal the inline engine's."""
+    import threading
+    from repro_torch.launch import serve
+    _need_gpu()
+    args = _overlap_args(["--paged", "--kv-dtype", "int8"])
+    loaded = _loaded(args)
+    batch = {"tokens": serve.prompts(loaded.cfg, args)}
+    ref, _ = serve.build_engine(
+        _overlap_args(["--paged", "--kv-dtype", "int8"], "inline"),
+        loaded).generate(batch, args.tokens)
+    engines = [serve.build_engine(args, loaded) for _ in range(2)]
+    outs, errors = [[], []], []
+
+    def run(i):
+        try:
+            for _ in range(3):
+                outs[i].append(engines[i].generate(batch, args.tokens)[0])
+            torch.cuda.synchronize()
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for i, eng in enumerate(engines):
+        assert len(outs[i]) == 3 and eng.graph_stats["captures"] == 3
+        for out in outs[i]:
+            np.testing.assert_array_equal(out, ref)
+    assert engines[0].hcmp_executors[1] != engines[1].hcmp_executors[1]
+
+
+@pytest.mark.gpu
+def test_failed_overlap_capture_raises_on_card(monkeypatch):
+    """An error inside the overlapped step while it is captured reaches
+    the caller: the chunk is not run on the inline step instead."""
+    from repro_torch.core.hcmp import executors
+    from repro_torch.launch import serve
+    _need_gpu()
+    args = _overlap_args([])
+    loaded = _loaded(args)
+    batch = {"tokens": serve.prompts(loaded.cfg, args)}
+    real = executors.verify_front
+
+    def faulty(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("injected capture fault")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(executors, "verify_front", faulty)
+    eng = serve.build_engine(args, loaded)
+    with pytest.raises(RuntimeError, match="injected capture fault"):
+        eng.generate(batch, args.tokens)
+    assert eng.graph_stats["captures"] == 0
+    assert eng.graph_stats["warmup_steps"] > 0

@@ -277,7 +277,8 @@ def test_measure_acceptance_equals_jax():
 def test_time_step_times_the_chunk_and_restores(paged):
     """A finite positive time per step through the engine's chunk (the
     static-buffer step here); the strategy and tree kernel come back as
-    they were; an HCMP split other than inline is not yet ported."""
+    they were; the overlap partition times too and the mode comes back;
+    the measurement's graphs are released once timed."""
     kw = dict(paged=True, page_size=4, kv_dtype="int8") if paged else {}
     eng = _engine("spec", kw, graphed=True, arch=ARCHS[0], max_len=48,
                   chunk=2)
@@ -289,9 +290,14 @@ def test_time_step_times_the_chunk_and_restores(paged):
     assert np.isfinite(t) and t > 0
     assert eng.strategy is strategy and eng.tree_kernel == kernel
     assert eng.graph_stats["replays"] == 2 * 3       # capture, then 2 reps
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.time_step(hcmp="overlap")
-    assert eng.tree_kernel == kernel
+    assert eng.graph_stats["graphs"] == 0
+    t = eng.time_step(batch=2, prompt_len=8, reps=2, hcmp="overlap")
+    assert np.isfinite(t) and t > 0
+    assert eng.hcmp == "inline" and eng.tree_kernel == kernel
+    assert eng.strategy is strategy
+    assert eng.hcmp_stats["chunks"] == 2 + 2          # warm-up, capture, reps
+    assert eng.graph_stats["replays"] == 2 * 3 * 2
+    assert eng.graph_stats["graphs"] == 0
 
 
 def _strip_comments(src):

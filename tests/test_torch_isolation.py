@@ -80,6 +80,20 @@ def test_serving_plane_module_imports_alone_with_jax_blocked(module):
     _imports_alone(module)
 
 
+# ARCA and HCMP: the strategy search, the executor split, the walkthrough
+ARCA_HCMP_MODULES = ["repro_torch.core.arca",
+                     "repro_torch.core.hcmp.executors",
+                     "repro_torch.launch.arca_profile"]
+
+
+@pytest.mark.parametrize("module", ARCA_HCMP_MODULES)
+def test_arca_hcmp_module_imports_alone_with_jax_blocked(module):
+    """The same for ARCA and the HCMP executor split: neither imports
+    ``repro.core.arca`` or the reference's executors, and importing one
+    creates no stream and starts no thread."""
+    _imports_alone(module)
+
+
 def _imports_alone(module):
     assert module in _modules()
     code = (

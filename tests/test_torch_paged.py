@@ -330,8 +330,8 @@ def test_engine_validation_and_live_tree_kernel_switch():
         TSpec(tm, th, tp, tspec, kv_dtype="int4", **PAGED, **kw)
     with pytest.raises(ValueError, match="full attention"):
         TBatch(tm, tp, window=8, **PAGED, **kw)
-    with pytest.raises(NotImplementedError):
-        TSpec(tm, th, tp, tspec, hcmp="overlap", **PAGED, **kw)
+    with pytest.raises(ValueError):
+        TSpec(tm, th, tp, tspec, hcmp="fused", **PAGED, **kw)
     dense_eng = TSpec(tm, th, tp, tspec, **kw)
     with pytest.raises(ValueError):
         dense_eng.set_tree_kernel("sparse")
@@ -344,6 +344,20 @@ def test_engine_validation_and_live_tree_kernel_switch():
     od2, _ = eng.generate({"tokens": toks}, 10)
     np.testing.assert_array_equal(od, osp)
     np.testing.assert_array_equal(od, od2)
+    # the overlap partition serves the same tokens under each kernel; a
+    # kernel switch drops its runner, a partition switch comes back
+    over = TSpec(tm, th, tp, tspec, hcmp="overlap", **PAGED, **kw)
+    assert over.hcmp == "overlap" and over.hcmp_stats is None
+    oo, _ = over.generate({"tokens": toks}, 10)
+    over.set_tree_kernel("sparse")
+    assert over.hcmp_stats is None
+    oos, _ = over.generate({"tokens": toks}, 10)
+    assert over.hcmp_stats["chunks"] >= 1
+    over.set_hcmp("inline")
+    oi, _ = over.generate({"tokens": toks}, 10)
+    assert over.hcmp == "inline"
+    for o in (oo, oos, oi):
+        np.testing.assert_array_equal(od, o)
     with pytest.raises(ValueError):
         eng.set_tree_kernel("coo")
     # the "fp32" name is a float32 pool; None keeps the model dtype

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,13 +63,7 @@ def test_serve_without_gpu_fails_instead_of_running_on_cpu():
     assert "[serve]" not in res.stdout
 
 
-@pytest.mark.parametrize("flags", [
-    ["--paged", "--tree-kernel", "auto"], ["--hcmp", "auto"],
-    ["--hcmp", "overlap"], ["--arrivals", "poisson", "--spec-width", "auto"],
-    ["--spec-width", "4"],
-    ["--ckpt", "x"], ["--heads-ckpt", "x"], ["--width", "0"],
-    ["--spec-width", "auto"],
-])
+@pytest.mark.parametrize("flags", [["--ckpt", "x"], ["--heads-ckpt", "x"]])
 def test_later_slice_flags_exit_not_yet_ported(flags, capsys):
     from repro_torch.launch import serve
     argv = SMOKE + ["--device", "cpu", "--width", "8"] + flags
@@ -76,6 +71,88 @@ def test_later_slice_flags_exit_not_yet_ported(flags, capsys):
         serve.parse_args(argv)
     assert e.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+# the ARCA and HCMP flags, each with a line of the run's report
+ARCA_HCMP_RUNS = {
+    "tree kernel auto": (["--paged", "--tree-kernel", "auto"],
+                         r"\[serve\] measured tree kernel: (dense|sparse) "),
+    "hcmp auto": (["--hcmp", "auto"],
+                  r"\[serve\] measured partition: (inline|overlap) "),
+    "hcmp overlap": (["--hcmp", "overlap"],
+                     r"\[serve\] hcmp overlap gate: parity OK; predraft "
+                     r"hits \d+ / discards 0 over \d+ chunks on 1 "
+                     r"executor\(s\)"),
+    "spec width auto": (["--arrivals", "poisson", "--rate", "50",
+                         "--requests", "4", "--spec-width", "auto"],
+                        r"\[serve\] measured ARCA: start width=\d+ "),
+    "spec width 4": (["--spec-width", "4"], r"\[serve\] ghidorah: 24 "),
+    "width 0": (["--width", "0"], r"\[serve\] ARCA chose width=\d+ "),
+}
+
+
+@pytest.mark.parametrize("label", list(ARCA_HCMP_RUNS))
+def test_arca_and_hcmp_flags_run_on_cpu(label, capsys):
+    """Each flag of ARCA and HCMP parses and serves at smoke size on the
+    CPU: every row or request emits its full budget, and the run prints
+    the reference's line for its choice."""
+    from repro_torch.launch import serve
+    flags, line = ARCA_HCMP_RUNS[label]
+    argv = SMOKE + ["--device", "cpu"] + flags
+    if "--width" not in flags:
+        argv += ["--width", "8"]
+    res = serve.run(serve.parse_args(argv))
+    assert re.search(line, capsys.readouterr().out)
+    if "results" in res:
+        assert all(r.state == "DONE" and r.n_emitted == 12
+                   for r in res["results"])
+    else:
+        assert (res["stats"]["n_emitted"] == 12).all()
+    if label == "spec width 4":
+        assert res["engines"][0].strategy.width == 4
+    if label == "hcmp overlap":
+        np.testing.assert_array_equal(res["out"], res["inline"]["out"])
+        assert res["inline"]["engine"].hcmp == "inline"
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--spec-width", "auto"], "--spec-width auto needs --arrivals poisson "
+                               "--sched continuous"),
+    (["--arrivals", "poisson", "--sched", "static", "--spec-width", "auto"],
+     "--spec-width auto needs --arrivals poisson --sched continuous"),
+    (["--mode", "sequential", "--hcmp", "overlap"], "ghidorah option"),
+    (["--mode", "sequential", "--spec-width", "4"], "ghidorah option"),
+    (["--spec-width", "0"], "--spec-width must be 'auto' or a width >= 1"),
+])
+def test_arca_and_hcmp_flag_errors_match_the_reference(flags, why, capsys):
+    from repro_torch.launch import serve
+    argv = SMOKE + ["--device", "cpu", "--width", "8"] + flags
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(argv)
+    assert e.value.code != 0
+    assert why in capsys.readouterr().err
+
+
+def test_width_0_picks_the_reference_arca_width(capsys):
+    """``--width 0``: the analytic ARCA choice on the Jetson model, the
+    same width (and tree) as the reference's ``arca.best(choose_strategy)``
+    at the serve's prompt length."""
+    from repro.configs import get_config
+    from repro.core import arca
+    from repro.core.speculative import tree as T
+    from repro_torch.launch import serve
+    args = serve.parse_args(SMOKE + ["--device", "cpu", "--width", "0"])
+    cfg = get_config(args.arch)
+    want = arca.best(arca.choose_strategy(
+        cfg, T.default_accs(cfg.medusa_heads, cfg.medusa_top_k),
+        ctx=args.prompt_len))
+    eng, adaptive = serve.prepare(args, serve.load(args))
+    assert adaptive is None
+    assert eng.strategy.width == want.width
+    np.testing.assert_array_equal(eng.strategy.tree.parent.numpy(),
+                                  want.tree.parent)
+    assert f"[serve] ARCA chose width={want.width} " in \
+        capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags,why", [
