@@ -103,8 +103,19 @@ def profile_serve(args, loaded) -> dict:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     after = eng.graph_stats
-    steps = res["stats"]["device_steps"]
-    pieces = res["stats"].get("extend_pieces", 0)
+    return dict(device_summary(prof, wall_us),
+                steps=res["stats"]["device_steps"],
+                pieces=res["stats"].get("extend_pieces", 0),
+                graphs={k: after[k] - before[k] for k in
+                        ("captures", "replays", "capture_s")})
+
+
+def device_summary(prof, wall_us) -> dict:
+    """The device side of a finished ``torch.profiler`` run that took
+    ``wall_us`` on the host: busy time (the union of the activities),
+    idle share, activities, time with two at once, streams, and the
+    device time by kernel class and by kernel.  Raises SystemExit when
+    the profiler recorded no device activity."""
     # the raw device activities (building the profiler's event tree for
     # ~170k kernels of an eager run costs tens of seconds of host time)
     dev = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3,
@@ -126,12 +137,9 @@ def profile_serve(args, loaded) -> dict:
                 idle_share=1 - busy / wall_us, activities=len(dev),
                 overlap_ms=_overlap_us(spans) / 1e3,
                 streams=len({stream for *_, stream in dev}),
-                steps=steps, pieces=pieces,
                 by_class={k: v / 1e3 for k, v in by_class.items()},
                 by_name={k: v / 1e3 for k, v in by_name.items()},
-                count=dict(count),
-                graphs={k: after[k] - before[k] for k in
-                        ("captures", "replays", "capture_s")})
+                count=dict(count))
 
 
 def report(label, r):

@@ -54,8 +54,9 @@ ARCA and HCMP (``core/arca.py``, ``core/hcmp/executors.py``):
   (fixed batch) or any mismatch or leaked page (replay).  ``--hcmp auto``
   lets ARCA time both partitions and take the faster.
 
-Checkpoints (``--ckpt``, ``--heads-ckpt``) exit with a "not yet ported"
-error.
+Checkpoints: ``--ckpt`` restores the params and ``--heads-ckpt`` the
+Medusa heads (``training/checkpoint.py``: the port's files and the
+reference's) into the random ones before any engine is built.
 """
 from __future__ import annotations
 
@@ -83,9 +84,8 @@ from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.router import ReplicaRouter
 from repro_torch.runtime.router import replay as router_replay
 from repro_torch.runtime.server import AsyncEngineServer
+from repro_torch.training import checkpoint
 
-# flag -> (default, ROADMAP item that ports it)
-_LATER = {"ckpt": (None, "A12"), "heads_ckpt": (None, "A12")}
 # the candidate widths of --spec-width auto, as in the reference
 AUTO_WIDTHS = (1, 2, 4, 8, 16)
 
@@ -185,14 +185,12 @@ def parse_args(argv=None):
                          "inline twin and held to its tokens; auto = ARCA "
                          "times both partitions and takes the faster "
                          "(ghidorah only)")
-    # flags of later slices: parsed so that they fail with a clear message
-    ap.add_argument("--ckpt", default=None)
-    ap.add_argument("--heads-ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="restore the params from this checkpoint")
+    ap.add_argument("--heads-ckpt", default=None,
+                    help="restore the Medusa heads from this checkpoint "
+                         "(ghidorah)")
     args = ap.parse_args(argv)
-    for name, (default, item) in _LATER.items():
-        if getattr(args, name) != default:
-            ap.error(f"--{name.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (ROADMAP {item})")
     if args.width < 0:
         ap.error("--width must be >= 0 (0 = ARCA's analytic choice)")
     if args.spec_width is not None:
@@ -277,16 +275,21 @@ class Loaded:
 
 def load(args, *, with_heads: Optional[bool] = None) -> Loaded:
     """Random weights from ``--seed`` (heads from ``--seed + 1``), as the
-    reference draws them from ``PRNGKey(seed)`` / ``PRNGKey(seed + 1)``."""
+    reference draws them from ``PRNGKey(seed)`` / ``PRNGKey(seed + 1)``,
+    then ``--ckpt`` / ``--heads-ckpt`` restored into them."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     model = get_model(cfg)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(args.seed))
+    if args.ckpt:
+        params = checkpoint.restore(args.ckpt, params)
     heads = None
     if with_heads if with_heads is not None else args.mode == "ghidorah":
         heads = init_medusa(
             cfg, torch.Generator(device=device).manual_seed(args.seed + 1))
+        if args.heads_ckpt:
+            heads = checkpoint.restore(args.heads_ckpt, heads)
     return Loaded(cfg=cfg, model=model, params=params, heads=heads,
                   device=device)
 

@@ -55,6 +55,16 @@ def stack_init(n, init_fn):
     return stacked
 
 
+def unstack_layers(stacked, n):
+    """The ``n`` per-layer dicts of a stacked param dict (views, no copy).
+    One ``unbind`` per leaf: under autograd its backward stacks the layers'
+    grads once, where indexing layer by layer builds a full-size grad of
+    the stack for every layer."""
+    per = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in stacked.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 def layer_slice(stacked, i):
     """Layer ``i`` of a stacked param dict (views, no copy)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]

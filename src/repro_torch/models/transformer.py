@@ -62,12 +62,12 @@ def prefill(cfg, params, tokens, *, window=0, max_len=None,
             return_cache=True):
     """Returns (logits (B,S,V), extras, Cache).  ``max_len`` sets the cache
     capacity (>= S + expected new tokens); ``return_cache=False`` skips all
-    KV-cache work."""
+    KV-cache work (training: the path is plain autograd-safe torch).
+    ``extras`` holds ``aux_loss`` (0-d float32) and ``hidden`` (B,S,d)."""
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = cm.layer_slice(params["layers"], i)
+    for lp in cm.unstack_layers(params["layers"], cfg.num_layers):
         a, (k, v) = attn_prefill(cfg, lp["attn"],
                                  cm.rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps),
                                  window=window)
@@ -78,7 +78,11 @@ def prefill(cfg, params, tokens, *, window=0, max_len=None,
             ks.append(k)
             vs.append(v)
     logits = _logits(cfg, params, x)
-    extras = {"hidden": x}
+    # the dense mix adds no auxiliary loss (the reference sums a 0-d
+    # float32 zero per layer); lm_loss reads it as it reads MoE's
+    extras = {"aux_loss": torch.zeros((), dtype=torch.float32,
+                                      device=x.device),
+              "hidden": x}
     if not return_cache:
         return logits, extras, None
     kv = init_kv_cache(cfg.num_layers, B, max(S, max_len or 0),

@@ -424,7 +424,10 @@ def test_overlap_capture_two_replica_threads_on_card():
         try:
             for _ in range(3):
                 outs[i].append(engines[i].generate(batch, args.tokens)[0])
-            torch.cuda.synchronize()
+            # this thread's stream only: a device-wide sync would also
+            # wait on the other thread's stream while it captures, which
+            # CUDA refuses (cudaErrorStreamCaptureUnsupported)
+            torch.cuda.current_stream().synchronize()
         except Exception as e:          # reported by the main thread
             errors.append(e)
 
@@ -465,3 +468,19 @@ def test_failed_overlap_capture_raises_on_card(monkeypatch):
         eng.generate(batch, args.tokens)
     assert eng.graph_stats["captures"] == 0
     assert eng.graph_stats["warmup_steps"] > 0
+
+
+@pytest.mark.gpu
+def test_training_steps_match_cpu_on_card():
+    """One ``train_step`` and one ``medusa_step`` at ``qwen2-0.5b-smoke``
+    float32 from the same seeded params on the card and on the CPU: losses
+    within 1e-4 relative, the first step's grads within 2e-5 x each leaf's
+    max |g|, and no kernel launched (``chip_smoke.training_parity`` raises
+    otherwise)."""
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = chip_smoke.training_parity(torch, np, steps=1)
+    assert res["loss_rel_err"] <= chip_smoke.PARITY_RTOL
+    assert res["grad_rel_err"] <= chip_smoke.GRAD_TOL
+    assert all(w.launches == 0
+               for w in chip_smoke.kernel_wrappers().values())

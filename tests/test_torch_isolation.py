@@ -94,6 +94,27 @@ def test_arca_hcmp_module_imports_alone_with_jax_blocked(module):
     _imports_alone(module)
 
 
+# training: the optimizer, the steps, checkpoints and their entry points
+TRAINING_MODULES = ["repro_torch.training.optimizer",
+                    "repro_torch.training.train",
+                    "repro_torch.training.checkpoint",
+                    "repro_torch.launch.train",
+                    "repro_torch.launch.e2e_train_serve"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_module_imports_alone_with_jax_blocked(module):
+    """The same for the training slice: neither ``repro.training`` nor
+    ml_dtypes is needed to read or write the reference's checkpoints."""
+    _imports_alone(module)
+    code = (f"import sys, importlib\nimportlib.import_module({module!r})\n"
+            "assert 'ml_dtypes' not in sys.modules\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def _imports_alone(module):
     assert module in _modules()
     code = (

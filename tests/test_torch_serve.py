@@ -64,13 +64,17 @@ def test_serve_without_gpu_fails_instead_of_running_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--ckpt", "x"], ["--heads-ckpt", "x"]])
-def test_later_slice_flags_exit_not_yet_ported(flags, capsys):
+def test_later_slice_flags_exit_not_yet_ported(flags, tmp_path):
+    """The checkpoint flags exited "not yet ported" until training was
+    ported: they now parse, and ``load`` restores from them before any
+    engine is built, so a missing file fails there."""
     from repro_torch.launch import serve
     argv = SMOKE + ["--device", "cpu", "--width", "8"] + flags
-    with pytest.raises(SystemExit) as e:
-        serve.parse_args(argv)
-    assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    argv[-1] = str(tmp_path / "missing.npz")
+    args = serve.parse_args(argv)
+    assert (args.ckpt or args.heads_ckpt) == argv[-1]
+    with pytest.raises(FileNotFoundError):
+        serve.load(args)
 
 
 # the ARCA and HCMP flags, each with a line of the run's report
