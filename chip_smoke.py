@@ -31,8 +31,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    split-edge cases of B1, B2 and B3 (SPLIT_EDGE: one, two, three and one
    split per key tile; splits wholly unreserved, past the fill or cut away
    by a window; a row whose cache is all masked; a ragged last tile over
-   an int8 pool; head_dim 16 to 128; bf16, int8 and fp32); all of them at
-   the main path's shapes.
+   an int8 pool; head_dim 16 to 128, 112 among them; bf16, int8 and
+   fp32); all of them at the main path's shapes.  Phase 3c: B1, B2 (bf16
+   and int8 pools), B3 and B4 at the attention shapes of phase 4d's
+   families (``family_kernel_cases``): ``zamba2-7b``'s shared-attention
+   site (Hq = Hkv = 32, head_dim 112; B1 and B4 in fp32 too) and
+   ``qwen3-moe-30b-a3b``'s layer (32 query heads over 4 kv heads, G=8,
+   head_dim 128), at W=8 and W=1.
 4. Serve ``vicuna-7b`` at full width with random bf16 weights through the
    port's serve entry point: ``--mode ghidorah --width 8`` and
    ``--mode sequential`` on the dense cache, then on the paged pool (page
@@ -96,6 +101,30 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    of the first 5; no training step launches a kernel (counts from 0
    just before each part); ms a step (synchronized, past 2 warm-up
    steps), tokens/s and peak memory reported.
+4d. The MoE, VLM and hybrid families at full width, after phase 4c has
+   freed its weights, one model on the card at a time (random bf16
+   weights from seed 0 drawn on the card through the port's
+   ``init_params``; B=4, W=8: 4 Medusa heads x top-10, 4 paths of depth
+   4; 32 tokens a row, chunk 8): (a) ``qwen3-moe-30b-a3b`` (48 layers,
+   128 experts top-8) served at prompt 512 on the dense cache (B1 once a
+   layer a forward) and on the paged int8 pool with ``--tree-kernel
+   sparse`` (B3 and B4); (b) ``llava-next-mistral-7b``'s
+   ``DecodeEngine.generate`` with 2880 seeded random patch embeds before
+   511 text tokens, dense and paged bf16 (each row's reservation covers
+   the 3391-position prefix); (c) ``zamba2-7b`` (81 Mamba2 layers, 13
+   shared-attention sites of head_dim 112) served at prompt 512 dense (B1
+   once a site a forward) and paged (B2), then 8 Poisson arrivals at 4/s
+   through the continuous scheduler on the paged pool, a bank of 4
+   (whole-prompt admission: every request DONE with its budget, the pool
+   drained).  Every fixed-batch run is served graphed and again inside
+   ``eager()``: full budgets, graphed tokens equal the eager ones, every
+   forward through its kernel once per attention layer or site (the
+   graphed run counted through the replays' tallies) and no other,
+   finite teacher-forced logits.  Replayed-step ms, tok/s, prefill
+   seconds and peak allocated memory are printed, with the bytes a step
+   moves: the weights, the MoE experts (the one-hot dispatch reads all of
+   them; uniform routing would pick fewer) and the hybrid's per-depth
+   recurrent states.
 5. Drive the Fig. 10b study's path (the normalized tree kernel through its
    public entry point) with the counts set to 0 before it, and print the
    study's FLOP terms.  Time each kernel at the main path's shapes, the
@@ -115,6 +144,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    its warp route and ``tree_partial_kernel`` (device time, beside the
    bound), and break one B4 call's host time into its pieces, beside
    the whole call's and the library call's, in alternating windows.
+   Time B1, B2 (bf16 and int8 pools), B3 and B4 at verify W=8 on phase
+   3c's family shapes beside their plain versions and bounds (the
+   ``families`` entries of the kernels line).
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -766,6 +798,10 @@ SPLIT_EDGE = {
                                                   "int8", 592),
     "ragged S=592 2 splits G=1 W=8 int8 hd=128": (32, 1, 8, 128,
                                                   "bfloat16", "int8", 592),
+    # zamba2-7b's shared-attention head_dim, 7 MMA k-steps of 16
+    "Hkv=2 G=1 W=8 bf16 hd=112": (2, 1, 8, 112, "bfloat16", "bfloat16",
+                                  320),
+    "Hkv=32 G=1 W=8 int8 hd=112": (32, 1, 8, 112, "bfloat16", "int8", 320),
 }
 EDGE_PS = 16
 
@@ -868,6 +904,173 @@ def phase_split_edge_check(torch, np):
         log(f"split edge {label} (Hkv={case[0]}): max abs err "
             f"{', '.join(errs)} (tol {tol})")
     return worst
+
+
+def family_kernel_cases(np):
+    """(label, arch, W, dense kwargs of ``attention_inputs``, paged kwargs
+    of ``paged_inputs`` without the pool dtype) of phase 3c: the kernels
+    at the attention shapes of phase 4d's families: ``zamba2-7b``'s
+    shared-attention site (Hq = Hkv = 32, head_dim 112) and
+    ``qwen3-moe-30b-a3b``'s layer (32 query heads over 4 kv heads, G=8,
+    head_dim 128); B=4, the W=8 tree of 4 Medusa heads x top-10 and W=1,
+    the cache nearly full at the end of a 512 + 32 token serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import tree as T
+    out = []
+    for arch in ("zamba2-7b", "qwen3-moe-30b-a3b"):
+        cfg = get_config(arch)
+        spec = T.build_tree(T.default_accs(cfg.medusa_heads,
+                                           cfg.medusa_top_k),
+                            FAMILY["width"])
+        depth = spec.max_depth
+        B, ps = FAMILY["batch"], FAMILY["page_size"]
+        S = FAMILY["prompt_len"] + FAMILY["tokens"] + depth
+        maxp = -(-S // ps)
+        table = np.random.default_rng(S).permutation(B * maxp).reshape(
+            B, maxp).astype(np.int32)
+        fills = [S - depth - 2 * b for b in range(B)]
+        dims = dict(B=B, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                    hd=cfg.head_dim)
+        for W, tree in ((spec.width, (spec.mask,
+                                      spec.depth.astype(np.int32))),
+                        (1, (np.ones((1, 1), bool),
+                             np.zeros((1,), np.int32)))):
+            dense = dict(dims, W=W, S=S, pos=S - depth, window=0,
+                         tree=tree)
+            paged = dict(dims, W=W, ps=ps, table=table, n_pages=B * maxp,
+                         fills=fills, tree=tree)
+            out.append((f"{arch} W={W}", arch, W, dense, paged))
+    return out
+
+
+def phase_family_kernel_check(torch, np):
+    """Phase 3c: B1, B2 (bf16 and int8 pools), B3 (int8) and B4 against
+    their plain versions at ``family_kernel_cases``' shapes, bf16 queries
+    (the models' dtype), and B1 and B4 in fp32 at head_dim 112 (the CUDA
+    cores' route), at the reference's tolerances.  Returns the worst error
+    per kernel."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import tree_partial as tp
+    from repro_torch.kernels.verify_attention import verify_attention
+    worst = dict.fromkeys(("verify_attention", "paged_tree_attention",
+                           "paged_cache_attention",
+                           "sparse_tree_attention_partial"), 0.0)
+    for i, (label, arch, W, dense, paged) in enumerate(
+            family_kernel_cases(np)):
+        dtypes = ("bfloat16", "float32") if dense["hd"] == 112 \
+            else ("bfloat16",)
+        for dt in dtypes:
+            args = attention_inputs(torch, np, seed=600 + i, dtype=dt,
+                                    **dense)
+            tol = TOL[str(args[0].dtype)]
+            tree_in = (args[0], args[3], args[4], args[8])
+            errs = {"verify_attention": _hold(
+                        torch, "verify_attention", f"{label} {dt}",
+                        verify_attention(*args),
+                        plain.tree_attention_plain(*args), tol),
+                    "sparse_tree_attention_partial": _hold(
+                        torch, "sparse_tree_attention_partial",
+                        f"{label} {dt}",
+                        tp.sparse_tree_attention_partial(*tree_in),
+                        plain.sparse_tree_attention_partial_plain(*tree_in),
+                        tol)}
+            if dt == "bfloat16":
+                for pool in ("bfloat16", "int8"):
+                    a = paged_inputs(torch, np, seed=650 + i,
+                                     pool_dtype=pool, q_dtype=dt, **paged)
+                    e = _hold(torch, "paged_tree_attention",
+                              f"{label} {pool} pool",
+                              pa.paged_tree_attention(*paged_args(a)),
+                              plain.paged_tree_attention_plain(
+                                  *paged_args(a)), tol)
+                    errs[f"paged_tree_attention {pool}"] = e
+                    if pool == "int8":
+                        errs["paged_cache_attention"] = _hold(
+                            torch, "paged_cache_attention",
+                            f"{label} int8 pool",
+                            pa.paged_cache_attention(
+                                *paged_args(a, tree=False)),
+                            plain.paged_cache_attention_plain(
+                                *paged_args(a, tree=False)), tol)
+            torch.cuda.synchronize()
+            for name, e in errs.items():
+                key = name.split()[0]
+                worst[key] = max(worst[key], e)
+            log(f"family shapes vs plain {label} ({arch}: Hq="
+                f"{dense['Hq']} Hkv={dense['Hkv']} hd={dense['hd']}) q {dt}:"
+                f" max abs err " + ", ".join(f"{k} {v:.2e}"
+                                             for k, v in errs.items())
+                + f" (tol {tol})")
+    return worst
+
+
+# the second kernel of a split walk, which a one-split plan leaves out
+_ONE_SPLIT = ("merge_kernel", "carry_fold_kernel")
+
+
+def phase_family_timing(torch, np, card):
+    """B1, B2 (bf16 and int8 pools), B3 (int8) and B4 at verify W=8 on
+    ``family_kernel_cases``' shapes (bf16 queries), each cycling 4 input
+    sets, beside its plain version and its bound (no library call)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import tree_partial as tp
+    from repro_torch.kernels.verify_attention import verify_attention
+    rows = {}
+    for label, arch, W, dense, paged in family_kernel_cases(np):
+        if W == 1:
+            continue
+        sets = [attention_inputs(torch, np, seed=700 + r, dtype="bfloat16",
+                                 **dense) for r in range(4)]
+        ref = plain.tree_attention_plain(*sets[0])
+        nbytes, _ = needed_bytes(torch, sets[0], ref)
+        rows[f"B1 {label}"] = time_row(
+            torch, card, f"B1 {label}", SYMBOLS["verify_attention"],
+            lambda a: verify_attention(*a),
+            lambda a: plain.tree_attention_plain(*a), sets, nbytes,
+            needed_ops(sets[0]), sets[0][0].dtype, optional=_ONE_SPLIT)
+        tree_sets = [(a[0], a[3], a[4], a[8]) for a in sets]
+        part = plain.sparse_tree_attention_partial_plain(*tree_sets[0])
+        tb = sum(t.numel() * t.element_size()
+                 for t in list(tree_sets[0]) + list(part))
+        B, Wq, Hq, hd = sets[0][0].shape
+        rows[f"B4 {label}"] = time_row(
+            torch, card, f"B4 {label}",
+            SYMBOLS["sparse_tree_attention_partial"],
+            lambda a: tp.sparse_tree_attention_partial(*a),
+            lambda a: plain.sparse_tree_attention_partial_plain(*a),
+            tree_sets, tb, 4 * B * Hq * Wq * Wq * hd, sets[0][0].dtype)
+        del sets, tree_sets
+        for pool in ("bfloat16", "int8"):
+            psets = [paged_inputs(torch, np, seed=750 + r, pool_dtype=pool,
+                                  q_dtype="bfloat16", **paged)
+                     for r in range(4)]
+            a0 = psets[0]
+            outs = (plain.paged_tree_attention_plain(*paged_args(a0)),)
+            nbytes, n = paged_bytes(a0, outs)
+            rows[f"B2 {pool} pool {label}"] = time_row(
+                torch, card, f"B2 {pool} pool {label}",
+                SYMBOLS["paged_tree_attention"],
+                lambda a: pa.paged_tree_attention(*paged_args(a)),
+                lambda a: plain.paged_tree_attention_plain(*paged_args(a)),
+                psets, nbytes, paged_ops(a0, n), a0["q"].dtype,
+                optional=_ONE_SPLIT)
+            if pool == "int8":
+                outs = plain.paged_cache_attention_plain(
+                    *paged_args(a0, tree=False))
+                nbytes, n = paged_bytes(a0, outs, tree=False)
+                rows[f"B3 int8 pool {label}"] = time_row(
+                    torch, card, f"B3 int8 pool {label}",
+                    SYMBOLS["paged_cache_attention"],
+                    lambda a: pa.paged_cache_attention(
+                        *paged_args(a, tree=False)),
+                    lambda a: plain.paged_cache_attention_plain(
+                        *paged_args(a, tree=False)),
+                    psets, nbytes, paged_ops(a0, n, tree=False),
+                    a0["q"].dtype, optional=_ONE_SPLIT)
+            del psets
+    return rows
 
 
 def phase_sparse_kernel_check(torch, np):
@@ -2176,6 +2379,368 @@ def phase_training_full(torch, np, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: the MoE, VLM and hybrid families at full width
+# ---------------------------------------------------------------------------
+# one model at a time, random bf16 weights from seed 0 drawn on the card
+# through the port's init_params; B=4, W=8 (4 Medusa heads x top-10: 4
+# paths, depth 4), prompts of 511 tokens, 32 new tokens a row, chunk 8
+FAMILY = dict(width=8, batch=4, prompt_len=512, tokens=32, chunk=8, seed=0,
+              page_size=16)
+# (b)'s text tokens a row, after its 2880 patch embeds: 3391 positions
+VLM_TEXT = 511
+FAMILY_ARCHS = {"(a) moe": "qwen3-moe-30b-a3b",
+                "(b) vlm": "llava-next-mistral-7b",
+                "(c) hybrid": "zamba2-7b"}
+# fixed-batch runs of each family: label -> (serve flags, the kernels each
+# forward launches once per attention layer or site)
+FAMILY_RUNS = {
+    "(a) moe": {"dense": ([], ("verify_attention",)),
+                "paged int8 sparse": (
+                    ["--paged", "--kv-dtype", "int8", "--tree-kernel",
+                     "sparse"],
+                    ("paged_cache_attention",
+                     "sparse_tree_attention_partial"))},
+    "(b) vlm": {"dense": ([], ("verify_attention",)),
+                "paged bf16": (["--paged", "--kv-dtype", "bf16"],
+                               ("paged_tree_attention",))},
+    "(c) hybrid": {"dense": ([], ("verify_attention",)),
+                   "paged": (["--paged"], ("paged_tree_attention",))},
+}
+# (c)'s replay: 8 Poisson arrivals at 4/s, the continuous scheduler on the
+# paged pool, a bank of 4 (whole-prompt admission: sched_chunked_ok is
+# False for a recurrent family)
+FAMILY_REPLAY = ["--paged", "--arrivals", "poisson", "--rate", "4",
+                 "--requests", "8", "--sched", "continuous"]
+
+
+def family_argv(arch, extra=()):
+    f = FAMILY
+    return ["--arch", arch, "--mode", "ghidorah", "--width",
+            str(f["width"]), "--batch", str(f["batch"]), "--prompt-len",
+            str(f["prompt_len"]), "--tokens", str(f["tokens"]), "--chunk",
+            str(f["chunk"]), "--seed", str(f["seed"]), "--device", DEVICE,
+            "--page-size", str(f["page_size"]), "--pool-pages", "0",
+            *extra]
+
+
+def attention_layers(cfg):
+    """Attention layers (or shared-attention sites) a forward runs."""
+    if cfg.arch_type == "hybrid":
+        from repro_torch.models.hybrid import n_sites
+        return n_sites(cfg)
+    return cfg.num_layers
+
+
+def gate_counts(label, counts, kernels, want):
+    """Each kernel of the run launched ``want`` times, every other 0."""
+    for name, got in counts.items():
+        if got != (want if name in kernels else 0) or \
+                (name in kernels and not got):
+            raise SmokeError(f"{label}: {got} {name} launches, expected "
+                             f"{want if name in kernels else 0} "
+                             f"(counts {counts})")
+
+
+def family_bytes(cfg, loaded, B, W, n_paths, depth):
+    """What a verify step must move besides the cache: the weights it
+    reads (all of them, the one-hot dispatch reading every expert), the
+    MoE experts' share of them and, with uniform routing, the experts
+    that B*W verify tokens (and B decode tokens) pick in expectation; the
+    hybrid's per-depth recurrent states (L x D x B*P x nh x hd x N x 4 B
+    written a step)."""
+    weights = sum(t.numel() * t.element_size() for t in _leaves(loaded.params))
+    out = dict(weight_bytes=weights)
+    if cfg.num_experts:
+        E, K = cfg.num_experts, cfg.experts_per_token
+        moe = loaded.params["layers"]["moe"]
+        experts = sum(moe[k].numel() * moe[k].element_size()
+                      for k in ("w_gate", "w_up", "w_down"))
+        per = experts / E
+        picked = {n: E * (1 - (1 - K / E) ** n) for n in (B * W, B)}
+        out.update(expert_bytes=experts,
+                   verify_expected_experts=picked[B * W],
+                   verify_expected_bytes=per * picked[B * W],
+                   decode_expected_experts=picked[B],
+                   decode_expected_bytes=per * picked[B],
+                   expert_read_ms=1e3 * experts / HBM_BYTES_PER_S)
+    if cfg.arch_type == "hybrid":
+        from repro_torch.models import mamba2
+        di, nh, hd, N = mamba2.dims(cfg)
+        out["depth_state_bytes"] = (cfg.num_layers * depth * B * n_paths
+                                    * nh * hd * N * 4)
+    return out
+
+
+def family_finite(torch, np, loaded, prompts, out, extra=None):
+    """Teacher-forced logits over prompt + each row's stream (one row at a
+    time, the VLM's patch embeds before it) are finite."""
+    for row in range(out.shape[0]):
+        seq = np.concatenate([prompts[row], out[row][:-1]])[None]
+        batch = {"tokens": torch.as_tensor(seq, device=loaded.device)}
+        if extra is not None:
+            batch["patch_embeds"] = extra[row:row + 1]
+        with torch.no_grad():
+            logits, _, _ = loaded.model.prefill(loaded.params, batch,
+                                                return_cache=False)
+        if not bool(torch.isfinite(logits).all()):
+            raise SmokeError(f"{loaded.cfg.name}: non-finite teacher-forced "
+                             f"logits on row {row}")
+        del logits
+
+
+def family_run(torch, np, label, loaded, run, kernels, go):
+    """One fixed-batch run of a family, graphed then inside ``eager()``:
+    ``go()`` returns ``(out, stats, seconds, engine)``.  Gates: full
+    budgets, each forward through its kernel once per attention layer or
+    site (the graphed run counted through the replays' tallies), the
+    graphed run replaying its captured steps, graphed tokens equal to the
+    eager ones.  Returns the graphed run's figures."""
+    from repro_torch.runtime.engine import eager
+    cfg = loaded.cfg
+    layers = attention_layers(cfg)
+    runs = {}
+    for path in ("graphed", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with (eager() if path == "eager" else contextlib.nullcontext()):
+            out, stats, seconds, eng = go()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        steps = stats["device_steps"]
+        total = stats["emitted_total"]
+        if total != FAMILY["batch"] * FAMILY["tokens"]:
+            raise SmokeError(f"{label} {run} ({path}): {total} tokens, "
+                             f"expected {FAMILY['batch'] * FAMILY['tokens']}")
+        gate_counts(f"{label} {run} ({path})", counts, kernels,
+                    layers * steps)
+        graphs = graph_summary([eng])
+        check_graphs(f"{label} {run}", path, graphs, steps)
+        runs[path] = dict(
+            out=np.asarray(out), steps=steps, seconds=seconds,
+            tok_s=total / seconds, counts=counts, graphs=graphs,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            step_ms=1e3 * sum(stats["step_times"]) / max(steps, 1),
+            replay_step_ms=1e3 * stats["replay_s"]
+            / max(stats["replay_steps"], 1),
+            replay_steps=stats["replay_steps"],
+            acceptance=stats["acceptance_length"],
+            prefill_s=seconds - sum(stats["step_times"]))
+        del eng
+    g, e = runs["graphed"], runs["eager"]
+    if not np.array_equal(g["out"], e["out"]):
+        rows = [r for r in range(g["out"].shape[0])
+                if not np.array_equal(g["out"][r], e["out"][r])]
+        raise SmokeError(f"{label} {run}: graphed tokens differ from the "
+                         f"eager ones on rows {rows}")
+    log(f"{label} {cfg.name} {run}: graphed {g['tok_s']:.1f} tok/s, "
+        f"replayed step {g['replay_step_ms']:.3f} ms over "
+        f"{g['replay_steps']} steps (mean step {g['step_ms']:.2f} ms), "
+        f"prefill + prologue {g['prefill_s']:.2f}s, peak allocated "
+        f"{g['peak_gib']:.2f} GiB, acceptance {g['acceptance']:.3f}, "
+        f"launches {g['counts']} ({layers} x {g['steps']} steps), "
+        f"{_graphs_text(g)}; eager {e['tok_s']:.1f} tok/s, step "
+        f"{e['step_ms']:.2f} ms, peak {e['peak_gib']:.2f} GiB; graphed "
+        f"tokens equal eager tokens")
+    return dict(g, eager={k: e[k] for k in ("tok_s", "step_ms", "peak_gib",
+                                            "seconds", "prefill_s")})
+
+
+def family_load(torch, label):
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    arch = FAMILY_ARCHS[label]
+    loaded = serve.load(serve.parse_args(family_argv(arch)), with_heads=True)
+    torch.cuda.synchronize()
+    cfg = loaded.cfg
+    n = sum(t.numel() for t in _leaves(loaded.params))
+    h = sum(t.numel() for t in _leaves(loaded.heads))
+    log(f"{label} {cfg.name} ({cfg.source}): {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} query heads over "
+        f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, "
+        f"{n / 1e9:.2f}B params + {h / 1e9:.2f}B Medusa-head params "
+        f"({cfg.medusa_heads} heads x top-{cfg.medusa_top_k}) in "
+        f"{cfg.dtype}, random from seed {FAMILY['seed']} on the card "
+        f"({time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated)")
+    return loaded
+
+
+def family_serve(torch, np, label, loaded, launches):
+    """(a) and (c)'s fixed-batch runs through the serve entry point."""
+    from repro_torch.launch import serve
+    out = {}
+    for run, (flags, kernels) in FAMILY_RUNS[label].items():
+        args = serve.parse_args(family_argv(FAMILY_ARCHS[label], flags))
+
+        def go():
+            res = serve.run(args, loaded)
+            return (res["out"], res["stats"], res["seconds"],
+                    res["engines"][0])
+
+        out[run] = r = family_run(torch, np, label, loaded, run, kernels, go)
+        prompts = serve.prompts(loaded.cfg, args)
+        family_finite(torch, np, loaded, prompts, r["out"])
+        for name, n in r["counts"].items():
+            launches[name] += n
+        drop_engines(torch)
+    return out
+
+
+def vlm_serve(torch, np, label, loaded, launches):
+    """(b): ``DecodeEngine.generate`` with ``{"tokens", "patch_embeds"}``:
+    2880 seeded random patch embeds, then ``VLM_TEXT`` text tokens a row
+    (the serve's prompts, cut), on the
+    dense cache and the paged bf16 pool; a paged row reserves pages for
+    its whole prefix + budget + one accepted chain."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.cache import pages_for
+    from repro_torch.runtime.engine import _prompt_len
+    cfg = loaded.cfg
+    args0 = serve.parse_args(family_argv(FAMILY_ARCHS[label]))
+    prompts = serve.prompts(cfg, args0)[:, :VLM_TEXT]
+    gen = torch.Generator(device=loaded.device).manual_seed(FAMILY["seed"]
+                                                             + 2)
+    patches = torch.randn((FAMILY["batch"], cfg.num_frontend_tokens,
+                           cfg.d_model), generator=gen,
+                          device=loaded.device).to(torch.bfloat16)
+    batch = {"tokens": torch.as_tensor(prompts, device=loaded.device),
+             "patch_embeds": patches}
+    plen = _prompt_len(batch)
+    spec = serve.fixed_spec(args0, cfg)
+    out = {}
+    for run, (flags, kernels) in FAMILY_RUNS[label].items():
+        args = serve.parse_args(family_argv(FAMILY_ARCHS[label], flags))
+        reserved = []
+
+        def go():
+            eng = serve.build_engine(
+                args, loaded, spec,
+                max_len=plen + FAMILY["tokens"] + spec.max_depth)
+            if eng.paged:
+                orig = eng._reserve_tables
+
+                def spy(B, prompt_len, budget):
+                    tables, n_total = orig(B, prompt_len, budget)
+                    reserved.append(((tables >= 0).sum(dim=1).tolist(),
+                                     prompt_len))
+                    return tables, n_total
+                eng._reserve_tables = spy
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, stats = eng.generate(batch, FAMILY["tokens"])
+            return o, stats, time.perf_counter() - t0, eng
+
+        out[run] = r = family_run(torch, np, label, loaded, run, kernels, go)
+        if reserved:
+            want = pages_for(plen + FAMILY["tokens"] + spec.max_depth,
+                             FAMILY["page_size"])
+            for pages, p in reserved:
+                if p != plen or pages != [want] * FAMILY["batch"]:
+                    raise SmokeError(f"{label} {run}: reserved {pages} "
+                                     f"pages for a prompt of {p}, expected "
+                                     f"{want} a row for {plen} positions + "
+                                     f"{FAMILY['tokens']} tokens + "
+                                     f"{spec.max_depth}")
+            r["pages_per_row"] = want
+            log(f"{label} {run}: each row reserved {want} pages of "
+                f"{FAMILY['page_size']} for {plen} prefix + text positions "
+                f"+ {FAMILY['tokens']} tokens + {spec.max_depth}")
+        family_finite(torch, np, loaded, prompts, r["out"], extra=patches)
+        for name, n in r["counts"].items():
+            launches[name] += n
+        drop_engines(torch)
+    return out
+
+
+def hybrid_replay(torch, np, label, loaded, launches):
+    """(c)'s replay through the serve entry point: every request DONE with
+    its full budget, every forward through B2 once a site, pools
+    drained."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(family_argv(FAMILY_ARCHS[label], FAMILY_REPLAY))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(args, loaded)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    stats = res["stats"]
+    bad = [(r.req_id, r.state, r.n_emitted) for r in res["results"]
+           if r.state != "DONE" or r.n_emitted != FAMILY["tokens"]]
+    if bad:
+        raise SmokeError(f"{label} replay: requests not DONE with their "
+                         f"full budget: {bad}")
+    if stats.get("extend_pieces", 0):
+        raise SmokeError(f"{label} replay: chunked prefill ran on a "
+                         f"recurrent family")
+    eng = res["engines"][0]
+    if not (eng.sched_pool_conserved() and eng.sched_drained()):
+        raise SmokeError(f"{label} replay: the page pool leaked")
+    gate_counts(f"{label} replay", counts, ("paged_tree_attention",),
+                attention_layers(loaded.cfg) * stats["device_steps"])
+    graphs = graph_summary(res["engines"])
+    if not graphs["captures"] or not graphs["replays"]:
+        raise SmokeError(f"{label} replay: no captured step replayed "
+                         f"({graphs})")
+    forced_finite(torch, np, loaded, res)
+    for name, n in counts.items():
+        launches[name] += n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label} replay ({' '.join(FAMILY_REPLAY)}, bank of "
+        f"{FAMILY['batch']}): {_replay_summary(stats)}; wall {wall:.2f}s; "
+        f"{stats['device_steps']} decode steps, launches {counts}; peak "
+        f"{peak:.2f} GiB; {_graphs_text(dict(graphs=graphs))}; every "
+        f"request DONE, pool drained")
+    out = dict(tok_s=stats["tok_s"], latency_mean_s=stats["latency_mean_s"],
+               latency_p95_s=stats["latency_p95_s"],
+               steps=stats["device_steps"], wall=wall, peak_gib=peak,
+               counts=counts)
+    del res, eng
+    drop_engines(torch)
+    return out
+
+
+def phase_families(torch, np, launches, card):
+    """Phase 4d: (a) ``qwen3-moe-30b-a3b`` served dense and paged int8
+    with the sparse tree kernel, (b) ``llava-next-mistral-7b``'s
+    ``generate`` with its patch prefix, dense and paged bf16, (c)
+    ``zamba2-7b`` served dense and paged and replayed through the
+    continuous scheduler; one model on the card at a time."""
+    out = {}
+    for label in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        loaded = family_load(torch, label)
+        cfg = loaded.cfg
+        if label == "(b) vlm":
+            runs = vlm_serve(torch, np, label, loaded, launches)
+        else:
+            runs = family_serve(torch, np, label, loaded, launches)
+        from repro_torch.core.speculative import tree as T
+        spec = T.build_tree(T.default_accs(cfg.medusa_heads,
+                                           cfg.medusa_top_k),
+                            FAMILY["width"])
+        sizes = family_bytes(cfg, loaded, FAMILY["batch"],
+                             spec.width, spec.n_paths, spec.max_depth)
+        if label == "(c) hybrid":
+            runs["replay"] = hybrid_replay(torch, np, label, loaded,
+                                           launches)
+        for r in runs.values():
+            r.pop("out", None)
+        text = ", ".join(f"{k} {v / 1e9:.2f} GB" if k.endswith("bytes")
+                         else f"{k} {v:.2f}" for k, v in sizes.items())
+        log(f"{label} {cfg.name} a step (W={spec.width}: {spec.n_paths} "
+            f"paths, depth {spec.max_depth}; {card}): {text}")
+        out[label] = dict(arch=cfg.name, runs=runs, sizes=sizes,
+                          seconds=time.perf_counter() - t0)
+        del loaded
+        drop_engines(torch)
+        log(f"{label} took {out[label]['seconds']:.1f}s")
+    return out
+
+
 def sdpa_inputs(torch, args):
     """``scaled_dot_product_attention`` operands computing the fused verify
     of a dense cache: cache and tree keys side by side, one boolean mask."""
@@ -2252,7 +2817,7 @@ SYMBOLS = {"verify_attention": ("verify_flash_kernel", "merge_kernel"),
 PAD_KERNELS = 256
 
 
-def device_ms(torch, fn, sets, symbols, iters=20):
+def device_ms(torch, fn, sets, symbols, iters=20, optional=()):
     """Mean device time of one call, from a torch.profiler trace of
     ``iters`` calls: for each kernel symbol in ``symbols`` (every kernel
     one call launches: a split walk and its merge), the mean time of its
@@ -2260,7 +2825,9 @@ def device_ms(torch, fn, sets, symbols, iters=20):
     without the host's share of the call (CUDA events around a loop of
     calls measure the slower of the two).  The profiler may drop a launch
     at the edge of its window, so each mean is over the launches it
-    recorded, which must be most of them for every symbol."""
+    recorded, which must be most of them for every symbol but those in
+    ``optional`` (a merge or fold that a one-split plan does not launch),
+    which count where the trace has them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
@@ -2284,8 +2851,9 @@ def device_ms(torch, fn, sets, symbols, iters=20):
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA and sym in e.name]
                  for sym in symbols}
-        if all(len(v) >= iters // 2 for v in spans.values()):
-            return sum(sum(v) / len(v) for v in spans.values()) / 1e3
+        if all(len(v) >= iters // 2 for k, v in spans.items()
+               if k not in optional):
+            return sum(sum(v) / len(v) for v in spans.values() if v) / 1e3
         # the trace lost most of the window's launches (seen on this card:
         # 1 of 20 recorded); a new window measures again, nothing is kept
         log(f"the profiler saw {({k: len(v) for k, v in spans.items()})} "
@@ -2685,14 +3253,14 @@ def phase_sparse_study(torch, np, launches):
 
 
 def time_row(torch, card, key, symbol, kernel_fn, plain_fn, sets, nbytes,
-             ops, dtype, library=None, note=""):
+             ops, dtype, library=None, note="", optional=()):
     """Time one kernel at one shape: CUDA events around calls (ms), the
     profiler's device time, the plain version and, where given, the
     library call ``(fn, its input sets)``; with the bound of ``nbytes``
     and ``ops``."""
     kernel_ms = timed(torch, kernel_fn, sets)
     call_host = host_ms(torch, kernel_fn, sets)
-    dev_ms = device_ms(torch, kernel_fn, sets, symbol)
+    dev_ms = device_ms(torch, kernel_fn, sets, symbol, optional=optional)
     plain_ms = timed(torch, plain_fn, sets)
     library_ms = None if library is None else timed(torch, *library)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
@@ -2913,6 +3481,7 @@ def main():
     paged_err = phase_paged_kernel_check(torch, np)
     tree_err = phase_sparse_kernel_check(torch, np)
     edge_err = phase_split_edge_check(torch, np)
+    family_err = phase_family_kernel_check(torch, np)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f}s")
     launches, served, loaded = phase_serve(torch, np)
     replays = phase_replay(torch, np, loaded, launches)
@@ -2928,6 +3497,9 @@ def main():
     drop_engines(torch)
     training.update(phase_training_full(torch, np, launches))
     log(f"phase 4c done at {time.perf_counter() - t_start:.1f}s")
+    drop_engines(torch)
+    families = phase_families(torch, np, launches, card)
+    log(f"phase 4d done at {time.perf_counter() - t_start:.1f}s")
     study = phase_sparse_study(torch, np, launches)
     timing = phase_timing(torch, np, card)
     paged = phase_paged_timing(torch, np, card)
@@ -2935,14 +3507,23 @@ def main():
     waves = phase_waves(torch, np, card)
     tree_rows = phase_tree_rows(torch, np, card)
     partial = phase_partial(torch, np, card)
+    family_rows = phase_family_timing(torch, np, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
+
+    def shapes(prefix):
+        """The family shapes' rows of one kernel (phase 5)."""
+        return {k: {f: v[f] for f in ("device_ms", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+                for k, v in family_rows.items() if k.startswith(prefix)}
     t, d = timing["verify W=8"], timing["decode W=1"]
     b2, b2d = paged["B2 bfloat16 pool W=8"], paged["B2 bfloat16 pool W=1"]
     i8, i8d = paged["B2 int8 pool W=8"], paged["B2 int8 pool W=1"]
     entries = [
         kernel_entry("verify_attention", launches,
                      max(max_err, tree_err["verify_attention"],
-                         edge_err["verify_attention"]), t, card,
+                         edge_err["verify_attention"],
+                         family_err["verify_attention"]), t, card,
+                     families=shapes("B1"),
                      sass={k: v for k, v in sass.items()
                            if k.startswith("verify")},
                      chain_ms=tree["B1 chain W=256"]["kernel_ms"],
@@ -2959,7 +3540,9 @@ def main():
         kernel_entry("paged_tree_attention", launches,
                      max(paged_err["paged_tree_attention"],
                          tree_err["paged_tree_attention"],
-                         edge_err["paged_tree_attention"]), b2, card,
+                         edge_err["paged_tree_attention"],
+                         family_err["paged_tree_attention"]), b2, card,
+                     families=shapes("B2"),
                      sass={k: v for k, v in sass.items()
                            if "paged_flash" in k},
                      chain_ms=tree["B2 chain W=256"]["kernel_ms"],
@@ -2985,15 +3568,19 @@ def main():
         kernel_entry("paged_cache_attention", launches,
                      max(paged_err["paged_cache_attention"],
                          tree_err["paged_cache_attention"],
-                         edge_err["paged_cache_attention"]),
+                         edge_err["paged_cache_attention"],
+                         family_err["paged_cache_attention"]),
                      paged["B3 int8 pool W=8"], card,
+                     families=shapes("B3"),
                      sass={k: v for k, v in sass.items()
                            if "cache_flash" in k}),
         kernel_entry("sparse_tree_attention_partial", launches,
                      max(paged_err["sparse_tree_attention_partial"],
                          tree_err["sparse_tree_attention_partial"],
-                         partial["tiles_err"]),
+                         partial["tiles_err"],
+                         family_err["sparse_tree_attention_partial"]),
                      paged["B4 W=8"], card,
+                     families=shapes("B4"),
                      floor_ms=partial["device"]["floor warp"],
                      routes={
                          "warp": dict(
@@ -3029,6 +3616,7 @@ def main():
                      fig10b=study),
     ]
     log(f"training: {json.dumps(training)}")
+    log(f"families: {json.dumps(families, default=str)}")
     steps = {label: r["stats"]["device_steps"] for label, r in served.items()}
     steps.update({label: (r["stats"].get("device_steps"),
                           r["stats"].get("extend_pieces"))

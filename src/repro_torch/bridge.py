@@ -23,8 +23,8 @@ def _tensor(a, device, dtype):
             torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype if t.is_floating_point()
-                else t.dtype)
+    cast = dtype is not None and t.is_floating_point()
+    return t.to(device=device, dtype=dtype if cast else t.dtype)
 
 
 def _convert(tree, device, dtype):
@@ -34,12 +34,14 @@ def _convert(tree, device, dtype):
 
 
 def params_from_jax(cfg, tree, device="cuda", dtype=None):
-    """Model params (nested dict of numpy arrays) -> the port's params."""
-    dt = dtype or getattr(torch, cfg.dtype)
-    return _convert(tree, resolve_device(device), dt)
+    """Model params (nested dict of numpy arrays) -> the port's params.
+    Every leaf keeps its dtype (the MoE router and the Mamba2 ``A_log``,
+    ``D`` and ``dt_bias`` are float32 in every config) unless ``dtype``
+    casts all floating leaves."""
+    return _convert(tree, resolve_device(device), dtype)
 
 
 def heads_from_jax(cfg, tree, device="cuda", dtype=None):
-    """Medusa heads ({"w": (H,d,d), "out": (H,d,Vp)}) -> the port's heads."""
-    dt = dtype or getattr(torch, cfg.dtype)
-    return _convert(tree, resolve_device(device), dt)
+    """Medusa heads ({"w": (H,d,d), "out": (H,d,Vp)}) -> the port's heads,
+    each leaf in its dtype unless ``dtype`` casts them."""
+    return _convert(tree, resolve_device(device), dtype)

@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer stack (counterpart of
+"""Decoder-only transformer stack, dense / MoE / VLM (counterpart of
 ``repro/models/transformer.py``).
 
 Per-layer params are stacked on a leading L axis, as in the reference; a
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.models import common as cm
 from repro_torch.models.attention import attn_init, attn_prefill, attn_verify
-from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.mlp import mlp_apply, mlp_init, moe_apply, moe_init
 from repro_torch.runtime.cache import (Cache, PagedKVCache, bulk_write,
                                       init_kv_cache, kv_commit)
 
@@ -29,12 +29,16 @@ def init_params(cfg, gen):
     dev = gen.device
 
     def layer_init():
-        return {
+        p = {
             "ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "ln2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "attn": attn_init(cfg, gen),
-            "mlp": mlp_init(cfg, gen),
         }
+        if cfg.num_experts:
+            p["moe"] = moe_init(cfg, gen)
+        else:
+            p["mlp"] = mlp_init(cfg, gen)
+        return p
 
     params = {
         "embed": cm.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
@@ -45,6 +49,14 @@ def init_params(cfg, gen):
         params["lm_head"] = cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                           dt)
     return params
+
+
+def _mix(cfg, lp, h):
+    """The layer's MoE with its load-balance term (0-d float32), or its
+    MLP with None (the reference adds a zero)."""
+    if cfg.num_experts:
+        return moe_apply(cfg, lp["moe"], h)
+    return mlp_apply(cfg, lp["mlp"], h), None
 
 
 def _logits(cfg, params, x):
@@ -58,31 +70,34 @@ def embed_tokens(cfg, params, tokens):
 
 
 # --------------------------------------------------------------------------
-def prefill(cfg, params, tokens, *, window=0, max_len=None,
+def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
             return_cache=True):
-    """Returns (logits (B,S,V), extras, Cache).  ``max_len`` sets the cache
-    capacity (>= S + expected new tokens); ``return_cache=False`` skips all
-    KV-cache work (training: the path is plain autograd-safe torch).
-    ``extras`` holds ``aux_loss`` (0-d float32) and ``hidden`` (B,S,d)."""
-    x = embed_tokens(cfg, params, tokens)
+    """Returns (logits (B,S,V), extras, Cache).  ``embeds`` (B,S,d)
+    replaces the token embedding (the VLM path: patch embeds, then the
+    token embeds).  ``max_len`` sets the cache capacity (>= S + expected
+    new tokens); ``return_cache=False`` skips all KV-cache work (training:
+    the path is plain autograd-safe torch).  ``extras`` holds ``aux_loss``
+    (0-d float32, the layers' MoE load-balance terms summed) and
+    ``hidden`` (B,S,d)."""
+    x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
     B, S, _ = x.shape
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
     for lp in cm.unstack_layers(params["layers"], cfg.num_layers):
         a, (k, v) = attn_prefill(cfg, lp["attn"],
                                  cm.rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps),
                                  window=window)
         x = x + a
-        x = x + mlp_apply(cfg, lp["mlp"],
-                          cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))
+        m, aux = _mix(cfg, lp, cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))
+        x = x + m
+        if aux is not None:
+            auxs.append(aux)
         if return_cache:
             ks.append(k)
             vs.append(v)
     logits = _logits(cfg, params, x)
-    # the dense mix adds no auxiliary loss (the reference sums a 0-d
-    # float32 zero per layer); lm_loss reads it as it reads MoE's
-    extras = {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                      device=x.device),
-              "hidden": x}
+    aux_loss = torch.stack(auxs).sum() if auxs else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+    extras = {"aux_loss": aux_loss, "hidden": x}
     if not return_cache:
         return logits, extras, None
     kv = init_kv_cache(cfg.num_layers, B, max(S, max_len or 0),
@@ -124,8 +139,7 @@ def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask,
             tree_mask=tree_mask, window=kv.window, tree_kernel=tree_kernel,
             **layer_kv)
         x = x + a
-        x = x + mlp_apply(cfg, lp["mlp"],
-                          cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))
+        x = x + _mix(cfg, lp, cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))[0]
         k_new.append(k1)
         v_new.append(v1)
     extras = {"tree_kv": (torch.stack(k_new), torch.stack(v_new)),

@@ -23,13 +23,19 @@ Paged (``PagedKVCache``)
   page arms it to amax/127 and the scale is then frozen (later writes
   saturate at +-127).  Dequant is ``code * scale``.
 
+Recurrent state (``MambaState``, the hybrid family's Mamba2 layers)
+- ``ssm (L, B, nh, hd, N)`` float32 and the conv tail ``conv (L, B, K-1,
+  C)`` in the model's dtype, batch on axis 1 as in the KV stacks, with
+  ``pos (B,)``.
+
 The reference's jits donate the cache; here the K/V tensors (and the paged
-pool) are updated in place, while ``key_pos``/``pos``, the block tables
-and the int8 scales (a few bytes per row or page) are rebuilt, so a caller
-holding the previous ``key_pos``/``pos`` can still restore them.  The
-continuous scheduler's row surgery (``tile_rows``, ``blank_paged_rows``,
+pool) are updated in place, while ``key_pos``/``pos``, the block tables,
+the int8 scales and the recurrent state are rebuilt, so a caller holding
+the previous ``key_pos``/``pos`` can still restore them.  The continuous
+scheduler's row surgery (``tile_rows``, ``blank_paged_rows``,
 ``reset_rows``, ``insert_rows``, ``slice_row``, ``write_row_at``) follows
-the same rule.
+the same rule; chunked prefill (``slice_row``, ``write_row_at``) takes
+KV-only caches.
 """
 from __future__ import annotations
 
@@ -87,16 +93,26 @@ class PagedKVCache:
 
 
 @dataclasses.dataclass
+class MambaState:
+    ssm: torch.Tensor        # (L, B, nh, hd, N) float32
+    conv: torch.Tensor       # (L, B, K-1, C) conv tail (C = di + 2N)
+    pos: torch.Tensor        # (B,) int32
+
+
+@dataclasses.dataclass
 class Cache:
-    """Decode-state cache.  This slice ports the self-attention KV only;
-    the recurrent and cross-attention states come with ROADMAP A11."""
+    """Decode-state cache of every ported family (unused fields None): the
+    self-attention KV and the Mamba2 layers' recurrent state.  The xLSTM
+    and cross-attention states come with ROADMAP A11."""
     kv: Optional[KVCache | PagedKVCache] = None
+    mamba: Optional[MambaState] = None
 
     @property
     def pos(self) -> torch.Tensor:
-        if self.kv is None:
-            raise ValueError("empty cache")
-        return self.kv.pos
+        for c in (self.kv, self.mamba):
+            if c is not None:
+                return c.pos
+        raise ValueError("empty cache")
 
 
 # --------------------------------------------------------------------------
@@ -404,15 +420,31 @@ def _zero_page_scales(scale, pages, mask):
 # Per-row slot primitives of the continuous scheduler
 # (runtime/continuous.py).  A batched cache is a bank of B independent rows;
 # the scheduler admits sequences into rows and evicts them at chunk
-# boundaries, and every helper below touches only the rows it names.  This
-# slice ports the KV-only caches (the recurrent and cross-attention states
-# come with ROADMAP A11).
+# boundaries, and every helper below touches only the rows it names.  The
+# recurrent state's leaves carry batch on axis 1 (``ssm``, ``conv``) or 0
+# (``pos``); each helper maps over them with ``_mamba_map``.
 # --------------------------------------------------------------------------
 def _set_row(t, row, value):
     """A copy of the small per-row tensor ``t`` with ``t[row] = value``."""
     out = t.clone()
     out[row] = value
     return out
+
+
+def _mamba_map(fn, *states: MambaState) -> Optional[MambaState]:
+    """``MambaState(fn(batch_axis, *leaves) per field)`` over states of one
+    structure, or None when the first is None."""
+    if states[0] is None:
+        return None
+    return MambaState(**{f: fn(axis, *(getattr(s, f) for s in states))
+                         for f, axis in (("ssm", 1), ("conv", 1),
+                                         ("pos", 0))})
+
+
+def _kv_only(cache: Cache, what: str) -> None:
+    if cache.mamba is not None:
+        raise ValueError(f"{what} supports KV-only caches (chunked prefill "
+                         f"is attention-family only)")
 
 
 def tile_rows(cache: Cache, batch: int) -> Cache:
@@ -423,7 +455,9 @@ def tile_rows(cache: Cache, batch: int) -> Cache:
         k=kv.k.repeat_interleave(batch, dim=1),
         v=kv.v.repeat_interleave(batch, dim=1),
         key_pos=kv.key_pos.repeat_interleave(batch, dim=0),
-        pos=kv.pos.repeat_interleave(batch, dim=0), window=kv.window))
+        pos=kv.pos.repeat_interleave(batch, dim=0), window=kv.window),
+        mamba=_mamba_map(lambda axis, a: a.repeat_interleave(batch, dim=axis),
+                         cache.mamba))
 
 
 def blank_paged_rows(row: Cache, batch: int, *, page_size, n_pages, max_len,
@@ -438,7 +472,10 @@ def blank_paged_rows(row: Cache, batch: int, *, page_size, n_pages, max_len,
     return Cache(kv=init_paged_kv_cache(
         L, batch, max_len, Hkv, hd, page_size=page_size, n_pages=n_pages,
         dtype=dkv.k.dtype if kv_dtype is None else kv_dtype,
-        device=dkv.k.device))
+        device=dkv.k.device),
+        # the recurrent rows are tiled: a row not yet admitted is masked
+        mamba=_mamba_map(lambda axis, a: a.repeat_interleave(batch, dim=axis),
+                         row.mamba))
 
 
 def reset_rows(cache: Cache, rows) -> Cache:
@@ -461,16 +498,24 @@ def reset_rows(cache: Cache, rows) -> Cache:
     rows = torch.as_tensor(rows, dtype=torch.bool, device=kv.pos.device)
     key_pos = torch.where(rows[:, None], -1, kv.key_pos).to(torch.int32)
     pos = torch.where(rows, 0, kv.pos).to(torch.int32)
+
+    def zero(axis, a):
+        shape = [1] * a.dim()
+        shape[axis] = rows.shape[0]
+        return torch.where(rows.reshape(shape), torch.zeros_like(a), a)
+
+    mamba = _mamba_map(zero, cache.mamba)
     if isinstance(kv, PagedKVCache):
         return Cache(kv=dataclasses.replace(
             kv, key_pos=key_pos, pos=pos,
             block_table=torch.where(rows[:, None], -1,
-                                    kv.block_table).to(torch.int32)))
+                                    kv.block_table).to(torch.int32)),
+            mamba=mamba)
     idx = torch.nonzero(rows).reshape(-1)
     kv.k[:, idx] = 0
     kv.v[:, idx] = 0
     return Cache(kv=KVCache(k=kv.k, v=kv.v, key_pos=key_pos, pos=pos,
-                            window=kv.window))
+                            window=kv.window), mamba=mamba)
 
 
 def insert_rows(cache: Cache, row: int, src: Cache, *, pages=None) -> Cache:
@@ -483,17 +528,25 @@ def insert_rows(cache: Cache, row: int, src: Cache, *, pages=None) -> Cache:
     reservation padded with -1, must be given: the prompt KV is scattered
     through it into the shared pool."""
     kv = cache.kv
+
+    def put(axis, big, small):
+        out = big.clone()
+        out.select(axis, row).copy_(small.select(axis, 0))
+        return out
+
+    mamba = _mamba_map(put, cache.mamba, src.mamba)
     if isinstance(kv, PagedKVCache):
         if pages is None:
             raise ValueError("paged insert_rows needs the row's pages")
-        return Cache(kv=_paged_insert_row(kv, row, src.kv, pages))
+        return Cache(kv=_paged_insert_row(kv, row, src.kv, pages),
+                     mamba=mamba)
     skv = src.kv
     kv.k[:, row] = skv.k[:, 0].to(kv.k.dtype)
     kv.v[:, row] = skv.v[:, 0].to(kv.v.dtype)
     return Cache(kv=KVCache(k=kv.k, v=kv.v,
                             key_pos=_set_row(kv.key_pos, row, skv.key_pos[0]),
                             pos=_set_row(kv.pos, row, skv.pos[0]),
-                            window=kv.window))
+                            window=kv.window), mamba=mamba)
 
 
 def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages
@@ -529,7 +582,9 @@ def slice_row(cache: Cache, row: int) -> Cache:
     """B=1 view of one bank row (the attention context a chunked-prefill
     piece extends).  Paged caches share the pool by reference: only the
     row's table, ``key_pos`` and ``pos`` are sliced, so the view costs
-    O(max_pages), not a pool copy; dense K/V are views of the bank."""
+    O(max_pages), not a pool copy; dense K/V are views of the bank.
+    KV-only caches: recurrent families admit whole prompts."""
+    _kv_only(cache, "slice_row")
     kv = cache.kv
     r = slice(row, row + 1)
     if isinstance(kv, PagedKVCache):
@@ -548,7 +603,9 @@ def write_row_at(cache: Cache, row: int, ks, vs, start, n_valid) -> Cache:
     Dense rows take a masked ring write (entries past ``n_valid``, the tail
     piece's padding, leave their slots as they were); paged rows scatter
     through the row's block table, padding into the trash page.  Requires
-    W <= the row's logical length (piece slots must not alias)."""
+    W <= the row's logical length (piece slots must not alias).  KV-only
+    caches, as ``slice_row``."""
+    _kv_only(cache, "write_row_at")
     kv = cache.kv
     dev = kv.pos.device
     W = ks.shape[1]

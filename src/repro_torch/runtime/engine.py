@@ -41,6 +41,13 @@ the scheduler reads it.
 
 The KV cache is updated in place where the reference donates it.
 
+Families: every engine takes the prefill batch dict.  A VLM batch's
+``patch_embeds`` join the decoder sequence, so a prompt's length
+(``_prompt_len``) counts them and a paged row reserves pages for the whole
+prefix.  A hybrid (Zamba2) engine carries the Mamba2 layers' recurrent
+state in ``Cache.mamba`` beside the shared-attention sites' KV; it admits
+whole prompts (``sched_chunked_ok`` is False).
+
 The compiled chunk (``runtime/graphs.py``): where the reference jits the
 K-step scan, the port on a CUDA device captures one decode step in a CUDA
 graph on static buffers and replays it K times a chunk, for ``generate``
@@ -80,7 +87,7 @@ import torch
 from repro_torch.core.speculative.tree import Tree, TreeSpec, chain_spec
 from repro_torch.core.speculative.verify import (SpecState, spec_prefill,
                                                  spec_step)
-from repro_torch.runtime.cache import (Cache, PageAllocator, _set_row,
+from repro_torch.runtime.cache import (PageAllocator, _set_row,
                                       blank_paged_rows, capacity_left,
                                       insert_rows, pages_for, paginate_cache,
                                       reset_rows, slice_row, tile_rows,
@@ -151,6 +158,15 @@ def eager():
     finally:
         with _EAGER.lock:
             _EAGER.depth -= 1
+
+
+def _prompt_len(batch) -> int:
+    """Decoder-sequence length of a prefill batch: its tokens plus any VLM
+    patch embeds, which join the decoder sequence."""
+    n = int(batch["tokens"].shape[1])
+    if "patch_embeds" in batch:
+        n += int(batch["patch_embeds"].shape[1])
+    return n
 
 
 def _pow2_chunk(k_max: int, need: int) -> int:
@@ -258,7 +274,9 @@ def _seq_step(model, params, state, *, active):
     lg, cache = model.decode(params, state.cache, state.cur_token[:, None])
     done = ~active
     kv = cache.kv
-    cache = Cache(kv=dataclasses.replace(
+    # as in the reference, only the KV bookkeeping is restored: a done
+    # hybrid row's recurrent state steps on (the row is inert until reset)
+    cache = dataclasses.replace(cache, kv=dataclasses.replace(
         kv,
         key_pos=torch.where(done[:, None], kv0.key_pos, kv.key_pos),
         pos=torch.where(done, kv0.pos, kv.pos)))
@@ -542,11 +560,11 @@ class DecodeEngine(_PagedPoolMixin):
         # registered candidate (a switch must never outgrow a reservation)
         return max(self.strategy.tree.max_depth, self._registered_depth)
 
-    def _prefill_paged(self, tokens, tables, n_total):
+    def _prefill_paged(self, batch, tables, n_total):
         """Prefill into a transient dense cache sized to the prompt, then
         paginate it into a fresh pool of ``n_total`` pages."""
-        st = _prefill_state(self.model, self.params, self.heads,
-                            {"tokens": tokens}, max_len=1, window=0)
+        st = _prefill_state(self.model, self.params, self.heads, batch,
+                            max_len=1, window=0)
         cache = paginate_cache(st.cache, tables, page_size=self.page_size,
                                n_pages=n_total, kv_dtype=self.kv_dtype)
         return SpecState(cache=cache, cur_token=st.cur_token,
@@ -706,17 +724,18 @@ class DecodeEngine(_PagedPoolMixin):
         steps run on the device (each one verify or decode forward)."""
         K = chunk or self.chunk
         eos_val = _NO_EOS if eos is None else int(eos)
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        B = int(tokens.shape[0])
+        batch = self._batch(batch)
+        B = int(batch["tokens"].shape[0])
         budget = _budget(n_tokens, B)
         self._touch_bank()            # new stream: stale pre-drafts die
         if self.paged:
-            tables, n_total = self._reserve_tables(B, int(tokens.shape[1]),
+            # a VLM row reserves pages for its whole prefix too
+            tables, n_total = self._reserve_tables(B, _prompt_len(batch),
                                                    budget)
-            state = self._prefill_paged(tokens, tables, n_total)
+            state = self._prefill_paged(batch, tables, n_total)
         else:
             state = _prefill_state(self.model, self.params, self.heads,
-                                   {"tokens": tokens}, max_len=self.max_len,
+                                   batch, max_len=self.max_len,
                                    window=self.window)
         n_max = int(budget.max())
         # prologue sync: the prefill's first token
@@ -807,17 +826,17 @@ class DecodeEngine(_PagedPoolMixin):
         state = None
         try:
             self._touch_bank()        # measurement stream, not the bank
-            tokens = torch.zeros((batch, prompt_len), dtype=torch.int32,
-                                 device=self.device)
+            dummy = {"tokens": torch.zeros((batch, prompt_len),
+                                           dtype=torch.int32,
+                                           device=self.device)}
             if self.paged:
                 budget = np.full((batch,), self.max_len, np.int64)
                 tables, n_total = self._reserve_tables(batch, prompt_len,
                                                        budget)
-                state = self._prefill_paged(tokens, tables, n_total)
+                state = self._prefill_paged(dummy, tables, n_total)
             else:
                 state = _prefill_state(self.model, self.params, self.heads,
-                                       {"tokens": tokens},
-                                       max_len=self.max_len,
+                                       dummy, max_len=self.max_len,
                                        window=self.window)
             done = torch.zeros((batch,), dtype=torch.bool,
                                device=self.device)
@@ -856,19 +875,21 @@ class DecodeEngine(_PagedPoolMixin):
 
 
     # ---- continuous-batching slot protocol (runtime/continuous.py) -------
-    def _tokens(self, batch):
-        return torch.as_tensor(batch["tokens"], device=self.device)
+    def _batch(self, batch):
+        """The prefill batch dict on the engine's device: ``tokens`` and,
+        for the VLM family, ``patch_embeds``."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
 
     def sched_prefill(self, batch):
         """B=1 prefill -> opaque row state.  Paged engines prefill at
         prompt size (the dense row is a splice source, not a resident)."""
         if self.paged:
             return _prefill_state(self.model, self.params, self.heads,
-                                  {"tokens": self._tokens(batch)},
-                                  max_len=1, window=0)
+                                  self._batch(batch), max_len=1, window=0)
         return _prefill_state(self.model, self.params, self.heads,
-                              {"tokens": self._tokens(batch)},
-                              max_len=self.max_len, window=self.window)
+                              self._batch(batch), max_len=self.max_len,
+                              window=self.window)
 
     @staticmethod
     def sched_first(row) -> int:
@@ -914,7 +935,7 @@ class DecodeEngine(_PagedPoolMixin):
         pages = None
         if self.paged:
             plen = reserve_len if reserve_len is not None \
-                else int(batch["tokens"].shape[1])
+                else _prompt_len(batch)
             pages = self._sched_pages(b, plen, n_tokens)
         row = self.sched_prefill(batch)
         return _insert_row(state, int(b), row, pages=pages), row.cur_token[0]

@@ -11,9 +11,12 @@ a replay reads nothing back.
 The carry lives in the graph's static inputs.  K/V (the dense rows or the
 page pool) are written in place by the step, so the graph adopts the
 caller's tensors as its own; every other carried tensor (``key_pos``,
-``pos``, the block table, the int8 scales, ``cur_token``, ``hidden``,
-``done``, ``rem``) the step rebuilds, so the captured step ends by copying
-each new value back into its static input and the replays chain.  Between
+``pos``, the block table, the int8 scales, the hybrid family's recurrent
+state ``ssm``/``conv``/``pos``, ``cur_token``, ``hidden``, ``done``,
+``rem``) the step rebuilds, so the captured step ends by copying each new
+value back into its static input and the replays chain.  The hybrid
+verify's per-depth states (``(L, D, B*P, ...)``) are transients of the
+step: they live in the graph's pool, not in the carry.  Between
 chunks the host may replace any of the small tensors (row surgery,
 admissions, new block tables, ``done``/``rem`` from the scheduler): before
 the replays each one that is not the static tensor itself is copied in.
@@ -72,7 +75,8 @@ import torch
 from repro_torch.core.speculative.tree import Tree
 from repro_torch.core.speculative.verify import SpecState
 from repro_torch.kernels.launch import CaptureTally
-from repro_torch.runtime.cache import Cache, KVCache, PagedKVCache
+from repro_torch.runtime.cache import (Cache, KVCache, MambaState,
+                                      PagedKVCache)
 
 _TREE = ("depth", "mask", "paths", "node_path", "node_depth", "parent",
          "rank")
@@ -82,6 +86,7 @@ _SMALL = {KVCache: ("key_pos", "pos"),
           PagedKVCache: ("block_table", "key_pos", "pos", "scale_k",
                          "scale_v")}
 _BIG = {KVCache: ("k", "v"), PagedKVCache: ("pool_k", "pool_v")}
+_MAMBA = ("ssm", "conv", "pos")      # the recurrent carry, all copied
 
 _CAPTURE_LOCK = threading.Lock()     # one capture at a time in the process
 
@@ -128,6 +133,9 @@ class StepGraph:
         self.strategy = dataclasses.replace(strategy, tree=self.tree)
         self.kv = dataclasses.replace(
             kv, **{f: _clone(getattr(kv, f)) for f in _SMALL[self.layout]})
+        ms = state.cache.mamba
+        self.mamba = None if ms is None else MambaState(
+            **{f: getattr(ms, f).clone() for f in _MAMBA})
         self.cur_token = state.cur_token.clone()
         self.hidden = _clone(state.hidden)
         dev = self.cur_token.device
@@ -147,8 +155,8 @@ class StepGraph:
         """One step from the static inputs; every value it rebuilt is
         copied back into its static input, so the next replay continues
         from it.  Returns the step's ``(emitted, n)``."""
-        state = SpecState(cache=Cache(kv=self.kv), cur_token=self.cur_token,
-                          hidden=self.hidden)
+        state = SpecState(cache=Cache(kv=self.kv, mamba=self.mamba),
+                          cur_token=self.cur_token, hidden=self.hidden)
         args = (self.strategy, state, self.done, self.rem, self.eos,
                 self.tree_kernel)
         if self.tree_tokens is None:
@@ -163,11 +171,23 @@ class StepGraph:
                                    f"K/V must be written in place")
         for f in _SMALL[self.layout]:
             _copy_in(getattr(self.kv, f), getattr(kv, f), f)
+        self._mamba_in(state.cache.mamba)
         _copy_in(self.cur_token, state.cur_token, "cur_token")
         _copy_in(self.hidden, state.hidden, "hidden")
         _copy_in(self.done, done, "done")
         _copy_in(self.rem, rem, "rem")
         return emitted, n
+
+    def _mamba_in(self, ms) -> None:
+        """Copy a recurrent state into the static one (none: none)."""
+        if (ms is None) != (self.mamba is None):
+            raise RuntimeError("mamba: the graph was captured with "
+                               f"{'no' if self.mamba is None else 'a'} "
+                               "recurrent state")
+        if ms is not None:
+            for f in _MAMBA:
+                _copy_in(getattr(self.mamba, f), getattr(ms, f),
+                         f"mamba.{f}")
 
     # ---- around it -------------------------------------------------------
     def holds(self, state: SpecState) -> bool:
@@ -190,6 +210,7 @@ class StepGraph:
         kv = state.cache.kv
         for f in _SMALL[self.layout]:
             _copy_in(getattr(self.kv, f), getattr(kv, f), f)
+        self._mamba_in(state.cache.mamba)
         _copy_in(self.cur_token, state.cur_token, "cur_token")
         _copy_in(self.hidden, state.hidden, "hidden")
         _copy_in(self.done, done, "done", cast=True)
@@ -236,7 +257,10 @@ class StepGraph:
         self.tally.replayed()
 
     def state(self) -> SpecState:
-        return SpecState(cache=Cache(kv=dataclasses.replace(self.kv)),
+        mamba = None if self.mamba is None else \
+            dataclasses.replace(self.mamba)
+        return SpecState(cache=Cache(kv=dataclasses.replace(self.kv),
+                                     mamba=mamba),
                          cur_token=self.cur_token, hidden=self.hidden)
 
 
@@ -263,7 +287,7 @@ class ChunkGraphs:
     @staticmethod
     def key(strategy, state: SpecState, done, tree_kernel,
             partition="inline") -> tuple:
-        kv = state.cache.kv
+        kv, ms = state.cache.kv, state.cache.mamba
         fields = _SMALL[type(kv)] + _BIG[type(kv)]
         return (partition, strategy.draft, tree_kernel, type(kv).__name__,
                 kv.window,
@@ -271,6 +295,8 @@ class ChunkGraphs:
                 strategy.tree.width, strategy.tree.max_depth,
                 tuple(_signature(getattr(strategy.tree, f)) for f in _TREE),
                 tuple(_signature(getattr(kv, f)) for f in fields),
+                None if ms is None else tuple(_signature(getattr(ms, f))
+                                              for f in _MAMBA),
                 _signature(state.cur_token), _signature(state.hidden),
                 tuple(done.shape))
 

@@ -484,3 +484,76 @@ def test_training_steps_match_cpu_on_card():
     assert res["grad_rel_err"] <= chip_smoke.GRAD_TOL
     assert all(w.launches == 0
                for w in chip_smoke.kernel_wrappers().values())
+
+
+@pytest.mark.gpu
+def test_family_shapes_match_plain_on_card():
+    """B1, B2 (bf16 and int8 pools), B3 (int8) and B4 at the attention
+    shapes of the MoE, VLM and hybrid families (chip_smoke.
+    family_kernel_cases): zamba2-7b's site at head_dim 112 with
+    Hq = Hkv = 32 (B1 and B4 in fp32 too) and qwen3-moe-30b-a3b's G=8
+    layer at head_dim 128, W=8 and W=1; one launch per call, every one
+    within fp32 2e-5 / bf16 2e-2 of its plain version."""
+    _need_gpu()
+    wrappers = (verify_attention, pa.paged_tree_attention,
+                pa.paged_cache_attention, tp.sparse_tree_attention_partial)
+    before = [w.launches for w in wrappers]
+    worst = chip_smoke.phase_family_kernel_check(torch, np)
+    cases = chip_smoke.family_kernel_cases(np)
+    n, n112 = len(cases), sum(c[3]["hd"] == 112 for c in cases)
+    assert n112 == 2 and n == 4
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        n + n112, 2 * n, n, n + n112]
+    assert max(worst.values()) < 2e-2
+
+
+# the families of the card's graph test: smoke configs, fp32
+FAMILY_GRAPH_ARCHS = ["qwen3-moe-30b-a3b-smoke", "llava-next-mistral-7b-smoke",
+                      "zamba2-7b-smoke"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", FAMILY_GRAPH_ARCHS)
+def test_family_graphed_chunk_equals_eager_on_card(arch, paged):
+    """The MoE, VLM (its patch prefix in the batch) and hybrid families on
+    the card: the captured step's replays give the eager chunks' tokens,
+    each forward counted once per attention layer or site through the
+    replays' tallies (the hybrid's recurrent state rides the graph's
+    static buffers)."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import eager
+    _need_gpu()
+    flags = ["--paged", "--kv-dtype", "bf16"] if paged else []
+    args = serve.parse_args(
+        ["--arch", arch, "--mode", "ghidorah", "--width", "8", "--batch",
+         "3", "--prompt-len", "24", "--tokens", "20", "--chunk", "4",
+         "--page-size", "8"] + flags)
+    loaded = serve.load(args, with_heads=True)
+    cfg = loaded.cfg
+    batch = {"tokens": torch.as_tensor(serve.prompts(cfg, args),
+                                       device=loaded.device)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn(
+            (3, cfg.num_frontend_tokens, cfg.d_model),
+            generator=torch.Generator(device="cuda").manual_seed(2),
+            device="cuda")
+    spec = serve.fixed_spec(args, cfg)
+    max_len = 24 + cfg.num_frontend_tokens + 20 + spec.max_depth
+    wrappers = chip_smoke.kernel_wrappers()
+    graphed = serve.build_engine(args, loaded, spec, max_len=max_len)
+    for w in wrappers.values():
+        w.launches = 0
+    out, stats = graphed.generate(batch, args.tokens)
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    kernel = "paged_tree_attention" if paged else "verify_attention"
+    want = chip_smoke.attention_layers(cfg) * stats["device_steps"]
+    assert counts == {name: want if name == kernel else 0
+                      for name in wrappers}, (counts, want)
+    assert stats["replay_steps"] > 0
+    with eager():
+        ref, _ = serve.build_engine(args, loaded, spec,
+                                    max_len=max_len).generate(batch,
+                                                              args.tokens)
+    np.testing.assert_array_equal(out, ref)

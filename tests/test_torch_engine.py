@@ -31,18 +31,21 @@ ARCHS = ["qwen2-0.5b-smoke", "vicuna-7b-smoke"]
 _SETUPS = {}
 
 
-def _setup(arch):
-    if arch not in _SETUPS:
+def _setup(arch, boost=BOOST):
+    """(cfg, JAX model, params, heads, port model, params, heads, JAX and
+    port W=8 trees, prompts), built once per (arch, boost)."""
+    key = (arch, boost)
+    if key not in _SETUPS:
         cfg = get_config(arch)
         jm = j_get_model(cfg)
         jp = jax.tree.map(np.array, jm.init_params(jax.random.PRNGKey(0)))
         jh = jax.tree.map(np.array, j_init_medusa(cfg, jax.random.PRNGKey(1)))
         jp["embed"][:, 0] = 1.0
         if cfg.tie_embeddings:
-            jp["embed"][7, 0] += BOOST
+            jp["embed"][7, 0] += boost
         else:
-            jp["lm_head"][0, 7] += BOOST
-        jh["out"][:, 0, 7] += BOOST
+            jp["lm_head"][0, 7] += boost
+        jh["out"][:, 0, 7] += boost
         tcfg = t_get_config(arch)
         tm = t_get_model(tcfg)
         tp = params_from_jax(tcfg, jp, device="cpu")
@@ -54,8 +57,8 @@ def _setup(arch):
         assert np.array_equal(spec.mask, tspec.mask)
         toks = MarkovDataset(cfg.vocab_size, seed=1).sample(
             2, 12, seed=7)[:, :-1].astype(np.int32)
-        _SETUPS[arch] = (cfg, jm, jp, jh, tm, tp, th, spec, tspec, toks)
-    return _SETUPS[arch]
+        _SETUPS[key] = (cfg, jm, jp, jh, tm, tp, th, spec, tspec, toks)
+    return _SETUPS[key]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -115,6 +115,23 @@ def test_training_module_imports_alone_with_jax_blocked(module):
     assert res.returncode == 0, res.stderr
 
 
+# the MoE, VLM and hybrid families: the MoE mix, Mamba2, recurrent verify,
+# the Zamba2 stack, the model API and the transformer stack
+FAMILY_MODULES = ["repro_torch.models.mlp",
+                  "repro_torch.models.mamba2",
+                  "repro_torch.models.recurrent_verify",
+                  "repro_torch.models.hybrid",
+                  "repro_torch.models.api",
+                  "repro_torch.models.transformer"]
+
+
+@pytest.mark.parametrize("module", FAMILY_MODULES)
+def test_family_module_imports_alone_with_jax_blocked(module):
+    """The same for the modules of the MoE, VLM and hybrid families:
+    neither ``repro.models`` nor ``repro.runtime.cache`` is needed."""
+    _imports_alone(module)
+
+
 def _imports_alone(module):
     assert module in _modules()
     code = (
