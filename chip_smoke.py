@@ -37,7 +37,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    families (``family_kernel_cases``): ``zamba2-7b``'s shared-attention
    site (Hq = Hkv = 32, head_dim 112; B1 and B4 in fp32 too) and
    ``qwen3-moe-30b-a3b``'s layer (32 query heads over 4 kv heads, G=8,
-   head_dim 128), at W=8 and W=1.
+   head_dim 128), and B1 and B2 alone at ``seamless-m4t-medium``'s
+   decoder layer (Hq = Hkv = 16, head_dim 64; its verify never splits),
+   at W=8 and W=1.
 4. Serve ``vicuna-7b`` at full width with random bf16 weights through the
    port's serve entry point: ``--mode ghidorah --width 8`` and
    ``--mode sequential`` on the dense cache, then on the paged pool (page
@@ -101,7 +103,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    of the first 5; no training step launches a kernel (counts from 0
    just before each part); ms a step (synchronized, past 2 warm-up
    steps), tokens/s and peak memory reported.
-4d. The MoE, VLM and hybrid families at full width, after phase 4c has
+4d. The MoE, VLM, hybrid, xLSTM and enc-dec families at full width and
+   depth, after phase 4c has
    freed its weights, one model on the card at a time (random bf16
    weights from seed 0 drawn on the card through the port's
    ``init_params``; B=4, W=8: 4 Medusa heads x top-10, 4 paths of depth
@@ -116,15 +119,22 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    once a site a forward) and paged (B2), then 8 Poisson arrivals at 4/s
    through the continuous scheduler on the paged pool, a bank of 4
    (whole-prompt admission: every request DONE with its budget, the pool
-   drained).  Every fixed-batch run is served graphed and again inside
+   drained); (d) ``xlstm-125m`` (12 layers, sLSTM at 3 and 9, mLSTM
+   elsewhere; no KV, no kernel) served at prompt 512 dense and paged (the
+   pool holds nothing), then (c)'s replay; (e) ``seamless-m4t-medium``'s
+   ``generate`` with 4096 seeded random frame embeds beside the 511-token
+   prompts, dense (B1 once a decoder layer a forward), paged bf16 and
+   paged int8 (B2), the frames not counted as decoder positions; (d) and
+   (e)'s graphed dense runs profiled (idle share, device time by
+   class).  Every fixed-batch run is served graphed and again inside
    ``eager()``: full budgets, graphed tokens equal the eager ones, every
    forward through its kernel once per attention layer or site (the
    graphed run counted through the replays' tallies) and no other,
    finite teacher-forced logits.  Replayed-step ms, tok/s, prefill
    seconds and peak allocated memory are printed, with the bytes a step
    moves: the weights, the MoE experts (the one-hot dispatch reads all of
-   them; uniform routing would pick fewer) and the hybrid's per-depth
-   recurrent states.
+   them; uniform routing would pick fewer), the hybrid's and xLSTM's
+   per-depth recurrent states and the enc-dec cross memory.
 5. Drive the Fig. 10b study's path (the normalized tree kernel through its
    public entry point) with the counts set to 0 before it, and print the
    study's FLOP terms.  Time each kernel at the main path's shapes, the
@@ -145,8 +155,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    bound), and break one B4 call's host time into its pieces, beside
    the whole call's and the library call's, in alternating windows.
    Time B1, B2 (bf16 and int8 pools), B3 and B4 at verify W=8 on phase
-   3c's family shapes beside their plain versions and bounds (the
-   ``families`` entries of the kernels line).
+   3c's family shapes (B1 and B2 at the seamless layer) beside their
+   plain versions, bounds and library calls (sdpa; over the gathered view
+   for B2; the efficient-attention kernel with its log-sum-exp for B3 and
+   B4): the ``families`` entries of the kernels line.
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -906,18 +918,25 @@ def phase_split_edge_check(torch, np):
     return worst
 
 
+# the families whose verify never splits (the enc-dec drops
+# ``--tree-kernel sparse``): phases 3c and 5 hold only B1 and B2 there
+FUSED_ONLY = ("seamless-m4t-medium",)
+
+
 def family_kernel_cases(np):
     """(label, arch, W, dense kwargs of ``attention_inputs``, paged kwargs
     of ``paged_inputs`` without the pool dtype) of phase 3c: the kernels
     at the attention shapes of phase 4d's families: ``zamba2-7b``'s
-    shared-attention site (Hq = Hkv = 32, head_dim 112) and
+    shared-attention site (Hq = Hkv = 32, head_dim 112),
     ``qwen3-moe-30b-a3b``'s layer (32 query heads over 4 kv heads, G=8,
-    head_dim 128); B=4, the W=8 tree of 4 Medusa heads x top-10 and W=1,
-    the cache nearly full at the end of a 512 + 32 token serve."""
+    head_dim 128) and ``seamless-m4t-medium``'s decoder self-attention
+    (Hq = Hkv = 16, head_dim 64); B=4, the W=8 tree of 4 Medusa heads x
+    top-10 and W=1, the cache nearly full at the end of a 512 + 32 token
+    serve."""
     from repro_torch.configs import get_config
     from repro_torch.core.speculative import tree as T
     out = []
-    for arch in ("zamba2-7b", "qwen3-moe-30b-a3b"):
+    for arch in ("zamba2-7b", "qwen3-moe-30b-a3b", "seamless-m4t-medium"):
         cfg = get_config(arch)
         spec = T.build_tree(T.default_accs(cfg.medusa_heads,
                                            cfg.medusa_top_k),
@@ -947,8 +966,9 @@ def phase_family_kernel_check(torch, np):
     """Phase 3c: B1, B2 (bf16 and int8 pools), B3 (int8) and B4 against
     their plain versions at ``family_kernel_cases``' shapes, bf16 queries
     (the models' dtype), and B1 and B4 in fp32 at head_dim 112 (the CUDA
-    cores' route), at the reference's tolerances.  Returns the worst error
-    per kernel."""
+    cores' route), at the reference's tolerances; B1 and B2 alone at the
+    ``FUSED_ONLY`` families' shapes.  Returns the worst error per
+    kernel."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain
     from repro_torch.kernels import tree_partial as tp
@@ -965,16 +985,18 @@ def phase_family_kernel_check(torch, np):
                                     **dense)
             tol = TOL[str(args[0].dtype)]
             tree_in = (args[0], args[3], args[4], args[8])
+            split = arch not in FUSED_ONLY
             errs = {"verify_attention": _hold(
                         torch, "verify_attention", f"{label} {dt}",
                         verify_attention(*args),
-                        plain.tree_attention_plain(*args), tol),
-                    "sparse_tree_attention_partial": _hold(
-                        torch, "sparse_tree_attention_partial",
-                        f"{label} {dt}",
-                        tp.sparse_tree_attention_partial(*tree_in),
-                        plain.sparse_tree_attention_partial_plain(*tree_in),
-                        tol)}
+                        plain.tree_attention_plain(*args), tol)}
+            if split:
+                errs["sparse_tree_attention_partial"] = _hold(
+                    torch, "sparse_tree_attention_partial",
+                    f"{label} {dt}",
+                    tp.sparse_tree_attention_partial(*tree_in),
+                    plain.sparse_tree_attention_partial_plain(*tree_in),
+                    tol)
             if dt == "bfloat16":
                 for pool in ("bfloat16", "int8"):
                     a = paged_inputs(torch, np, seed=650 + i,
@@ -985,7 +1007,7 @@ def phase_family_kernel_check(torch, np):
                               plain.paged_tree_attention_plain(
                                   *paged_args(a)), tol)
                     errs[f"paged_tree_attention {pool}"] = e
-                    if pool == "int8":
+                    if pool == "int8" and split:
                         errs["paged_cache_attention"] = _hold(
                             torch, "paged_cache_attention",
                             f"{label} int8 pool",
@@ -1009,39 +1031,72 @@ def phase_family_kernel_check(torch, np):
 _ONE_SPLIT = ("merge_kernel", "carry_fold_kernel")
 
 
+def _sdpa_ms(torch, lib_sets, ref):
+    """``library_ms`` of a normalized verify: one
+    ``scaled_dot_product_attention`` over ``lib_sets`` (``sdpa_inputs``),
+    checked against the plain version's output ``ref`` first.  Returns
+    (ms, note)."""
+    import torch.nn.functional as F
+
+    def call(a):
+        return F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                              attn_mask=a[3])
+    err = float((call(lib_sets[0]).transpose(1, 2).float() - ref.float())
+                .abs().max())
+    return timed(torch, call, lib_sets), (
+        f" (sdpa; max abs diff to plain {err:.2e})")
+
+
 def phase_family_timing(torch, np, card):
     """B1, B2 (bf16 and int8 pools), B3 (int8) and B4 at verify W=8 on
-    ``family_kernel_cases``' shapes (bf16 queries), each cycling 4 input
-    sets, beside its plain version and its bound (no library call)."""
+    ``family_kernel_cases``' shapes (bf16 queries; B1 and B2 alone at the
+    ``FUSED_ONLY`` families'), each cycling 4 input sets, beside its
+    plain version, its bound and one library call: sdpa over the dense
+    cache and the tree (B1), over the view gathered through the table
+    (B2; an int8 pool's view dequantized to bf16; the gather not timed),
+    the efficient-attention kernel with its log-sum-exp (B3, B4:
+    ``lse_library``)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import plain
     from repro_torch.kernels import tree_partial as tp
     from repro_torch.kernels.verify_attention import verify_attention
+    from repro_torch.runtime.cache import gather_pages_dequant
     rows = {}
+
     for label, arch, W, dense, paged in family_kernel_cases(np):
         if W == 1:
             continue
+        split = arch not in FUSED_ONLY
         sets = [attention_inputs(torch, np, seed=700 + r, dtype="bfloat16",
                                  **dense) for r in range(4)]
         ref = plain.tree_attention_plain(*sets[0])
         nbytes, _ = needed_bytes(torch, sets[0], ref)
+        library_ms, note = _sdpa_ms(
+            torch, [sdpa_inputs(torch, a) for a in sets], ref)
         rows[f"B1 {label}"] = time_row(
             torch, card, f"B1 {label}", SYMBOLS["verify_attention"],
             lambda a: verify_attention(*a),
             lambda a: plain.tree_attention_plain(*a), sets, nbytes,
-            needed_ops(sets[0]), sets[0][0].dtype, optional=_ONE_SPLIT)
-        tree_sets = [(a[0], a[3], a[4], a[8]) for a in sets]
-        part = plain.sparse_tree_attention_partial_plain(*tree_sets[0])
-        tb = sum(t.numel() * t.element_size()
-                 for t in list(tree_sets[0]) + list(part))
-        B, Wq, Hq, hd = sets[0][0].shape
-        rows[f"B4 {label}"] = time_row(
-            torch, card, f"B4 {label}",
-            SYMBOLS["sparse_tree_attention_partial"],
-            lambda a: tp.sparse_tree_attention_partial(*a),
-            lambda a: plain.sparse_tree_attention_partial_plain(*a),
-            tree_sets, tb, 4 * B * Hq * Wq * Wq * hd, sets[0][0].dtype)
-        del sets, tree_sets
+            needed_ops(sets[0]), sets[0][0].dtype, note=note,
+            optional=_ONE_SPLIT, library_ms=library_ms)
+        if split:
+            tree_sets = [(a[0], a[3], a[4], a[8]) for a in sets]
+            part = plain.sparse_tree_attention_partial_plain(*tree_sets[0])
+            tb = sum(t.numel() * t.element_size()
+                     for t in list(tree_sets[0]) + list(part))
+            B, Wq, Hq, hd = sets[0][0].shape
+            library_ms, note = lse_library(torch, [lse_inputs(
+                torch, dict(q=a[0], k_new=a[1], v_new=a[2], tree_mask=a[3]),
+                cache=False) for a in tree_sets], part)
+            rows[f"B4 {label}"] = time_row(
+                torch, card, f"B4 {label}",
+                SYMBOLS["sparse_tree_attention_partial"],
+                lambda a: tp.sparse_tree_attention_partial(*a),
+                lambda a: plain.sparse_tree_attention_partial_plain(*a),
+                tree_sets, tb, 4 * B * Hq * Wq * Wq * hd, sets[0][0].dtype,
+                note=note, library_ms=library_ms)
+            del tree_sets
+        del sets
         for pool in ("bfloat16", "int8"):
             psets = [paged_inputs(torch, np, seed=750 + r, pool_dtype=pool,
                                   q_dtype="bfloat16", **paged)
@@ -1049,17 +1104,30 @@ def phase_family_timing(torch, np, card):
             a0 = psets[0]
             outs = (plain.paged_tree_attention_plain(*paged_args(a0)),)
             nbytes, n = paged_bytes(a0, outs)
+
+            def view(a, which):
+                return gather_pages_dequant(
+                    a[f"pool_{which}"], a[f"scale_{which}"],
+                    a["block_table"]).to(torch.bfloat16)
+            library_ms, note = _sdpa_ms(torch, [sdpa_inputs(torch, (
+                a["q"], view(a, "k"), view(a, "v"), a["k_new"], a["v_new"],
+                a["key_pos"], a["q_pos"], a["lo"], a["tree_mask"]))
+                for a in psets], outs[0])
             rows[f"B2 {pool} pool {label}"] = time_row(
                 torch, card, f"B2 {pool} pool {label}",
                 SYMBOLS["paged_tree_attention"],
                 lambda a: pa.paged_tree_attention(*paged_args(a)),
                 lambda a: plain.paged_tree_attention_plain(*paged_args(a)),
                 psets, nbytes, paged_ops(a0, n), a0["q"].dtype,
-                optional=_ONE_SPLIT)
-            if pool == "int8":
+                note=note + " over the gathered view",
+                optional=_ONE_SPLIT, library_ms=library_ms)
+            if pool == "int8" and split:
                 outs = plain.paged_cache_attention_plain(
                     *paged_args(a0, tree=False))
                 nbytes, n = paged_bytes(a0, outs, tree=False)
+                library_ms, note = lse_library(
+                    torch, [lse_inputs(torch, a, cache=True) for a in psets],
+                    outs)
                 rows[f"B3 int8 pool {label}"] = time_row(
                     torch, card, f"B3 int8 pool {label}",
                     SYMBOLS["paged_cache_attention"],
@@ -1068,7 +1136,8 @@ def phase_family_timing(torch, np, card):
                     lambda a: plain.paged_cache_attention_plain(
                         *paged_args(a, tree=False)),
                     psets, nbytes, paged_ops(a0, n, tree=False),
-                    a0["q"].dtype, optional=_ONE_SPLIT)
+                    a0["q"].dtype, note=note, optional=_ONE_SPLIT,
+                    library_ms=library_ms)
             del psets
     return rows
 
@@ -1573,11 +1642,8 @@ def solo_agreement(np, loaded, runs):
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+    from repro_torch.tree import leaves
+    return leaves(tree)
 
 
 # (reference run, run compared with it) of phase 4's report
@@ -2391,7 +2457,9 @@ FAMILY = dict(width=8, batch=4, prompt_len=512, tokens=32, chunk=8, seed=0,
 VLM_TEXT = 511
 FAMILY_ARCHS = {"(a) moe": "qwen3-moe-30b-a3b",
                 "(b) vlm": "llava-next-mistral-7b",
-                "(c) hybrid": "zamba2-7b"}
+                "(c) hybrid": "zamba2-7b",
+                "(d) xlstm": "xlstm-125m",
+                "(e) encdec": "seamless-m4t-medium"}
 # fixed-batch runs of each family: label -> (serve flags, the kernels each
 # forward launches once per attention layer or site)
 FAMILY_RUNS = {
@@ -2406,10 +2474,23 @@ FAMILY_RUNS = {
                                ("paged_tree_attention",))},
     "(c) hybrid": {"dense": ([], ("verify_attention",)),
                    "paged": (["--paged"], ("paged_tree_attention",))},
+    # no attention: no kernel, and the paged pool holds nothing
+    "(d) xlstm": {"dense": ([], ()), "paged": (["--paged"], ())},
+    "(e) encdec": {"dense": ([], ("verify_attention",)),
+                   "paged bf16": (["--paged", "--kv-dtype", "bf16"],
+                                  ("paged_tree_attention",)),
+                   "paged int8": (["--paged", "--kv-dtype", "int8"],
+                                  ("paged_tree_attention",))},
 }
-# (c)'s replay: 8 Poisson arrivals at 4/s, the continuous scheduler on the
-# paged pool, a bank of 4 (whole-prompt admission: sched_chunked_ok is
-# False for a recurrent family)
+# the embeddings a family's ``generate`` batch carries beside its tokens:
+# label -> (batch key, the config's count of them, text tokens a row (None:
+# the serve's prompt), generator seed offset)
+FAMILY_EMBEDS = {"(b) vlm": ("patch_embeds", "num_frontend_tokens",
+                             VLM_TEXT, 2),
+                 "(e) encdec": ("frame_embeds", "encoder_seq_len", None, 3)}
+# the replays of (c) and (d): 8 Poisson arrivals at 4/s, the continuous
+# scheduler on the paged pool, a bank of 4 (whole-prompt admission:
+# sched_chunked_ok is False for a recurrent family)
 FAMILY_REPLAY = ["--paged", "--arrivals", "poisson", "--rate", "4",
                  "--requests", "8", "--sched", "continuous"]
 
@@ -2425,10 +2506,13 @@ def family_argv(arch, extra=()):
 
 
 def attention_layers(cfg):
-    """Attention layers (or shared-attention sites) a forward runs."""
+    """Attention layers (or shared-attention sites) a forward runs through
+    a verify kernel: none in xLSTM, the decoder's in enc-dec."""
     if cfg.arch_type == "hybrid":
         from repro_torch.models.hybrid import n_sites
         return n_sites(cfg)
+    if cfg.arch_type == "ssm":
+        return 0
     return cfg.num_layers
 
 
@@ -2448,7 +2532,10 @@ def family_bytes(cfg, loaded, B, W, n_paths, depth):
     MoE experts' share of them and, with uniform routing, the experts
     that B*W verify tokens (and B decode tokens) pick in expectation; the
     hybrid's per-depth recurrent states (L x D x B*P x nh x hd x N x 4 B
-    written a step)."""
+    written a step) and xLSTM's (each mLSTM layer's C, n and m, each
+    sLSTM layer's c, n, h and m, float32, D x B*P of them); the enc-dec
+    cross memory read a step (K and V of every decoder layer over the
+    encoder's frames)."""
     weights = sum(t.numel() * t.element_size() for t in _leaves(loaded.params))
     out = dict(weight_bytes=weights)
     if cfg.num_experts:
@@ -2469,17 +2556,30 @@ def family_bytes(cfg, loaded, B, W, n_paths, depth):
         di, nh, hd, N = mamba2.dims(cfg)
         out["depth_state_bytes"] = (cfg.num_layers * depth * B * n_paths
                                     * nh * hd * N * 4)
+    if cfg.arch_type == "ssm":
+        from repro_torch.configs.base import MLSTM
+        from repro_torch.models.xlstm import mlstm_dims
+        _, nh, hd = mlstm_dims(cfg)
+        row = sum(nh * hd * hd + nh * hd + nh if kind == MLSTM
+                  else 4 * cfg.d_model for kind in cfg.blocks())
+        out["depth_state_bytes"] = depth * B * n_paths * row * 4
+    if cfg.is_encoder_decoder:
+        ck = loaded.params["embed"].element_size()
+        out["cross_memory_bytes"] = (2 * cfg.num_layers * B
+                                     * cfg.encoder_seq_len
+                                     * cfg.num_kv_heads * cfg.head_dim * ck)
     return out
 
 
 def family_finite(torch, np, loaded, prompts, out, extra=None):
     """Teacher-forced logits over prompt + each row's stream (one row at a
-    time, the VLM's patch embeds before it) are finite."""
+    time, with the row's entries of ``extra``: the VLM's patch embeds, the
+    enc-dec frames) are finite."""
     for row in range(out.shape[0]):
         seq = np.concatenate([prompts[row], out[row][:-1]])[None]
         batch = {"tokens": torch.as_tensor(seq, device=loaded.device)}
-        if extra is not None:
-            batch["patch_embeds"] = extra[row:row + 1]
+        for k, v in (extra or {}).items():
+            batch[k] = v[row:row + 1]
         with torch.no_grad():
             logits, _, _ = loaded.model.prefill(loaded.params, batch,
                                                 return_cache=False)
@@ -2588,26 +2688,34 @@ def family_serve(torch, np, label, loaded, launches):
     return out
 
 
-def vlm_serve(torch, np, label, loaded, launches):
-    """(b): ``DecodeEngine.generate`` with ``{"tokens", "patch_embeds"}``:
-    2880 seeded random patch embeds, then ``VLM_TEXT`` text tokens a row
-    (the serve's prompts, cut), on the
-    dense cache and the paged bf16 pool; a paged row reserves pages for
-    its whole prefix + budget + one accepted chain."""
+def embeds_serve(torch, np, label, loaded, launches):
+    """(b) and (e): ``DecodeEngine.generate`` with the tokens and the
+    family's embeddings (``FAMILY_EMBEDS``), seeded random bf16: (b)'s
+    2880 patch embeds before ``VLM_TEXT`` text tokens a row (the serve's
+    prompts, cut), on the dense cache and the paged bf16 pool; (e)'s 4096
+    frame embeds beside the serve's 511-token prompts, dense, paged bf16
+    and paged int8.  A paged row reserves pages for its decoder positions
+    (the VLM's whole prefix; the prompt alone beside frames, which are
+    not decoder positions) + budget + one accepted chain.  Returns the
+    runs and the batch."""
     from repro_torch.launch import serve
     from repro_torch.runtime.cache import pages_for
     from repro_torch.runtime.engine import _prompt_len
     cfg = loaded.cfg
+    key, count, text, seed = FAMILY_EMBEDS[label]
     args0 = serve.parse_args(family_argv(FAMILY_ARCHS[label]))
-    prompts = serve.prompts(cfg, args0)[:, :VLM_TEXT]
+    prompts = serve.prompts(cfg, args0)[:, :text]
     gen = torch.Generator(device=loaded.device).manual_seed(FAMILY["seed"]
-                                                             + 2)
-    patches = torch.randn((FAMILY["batch"], cfg.num_frontend_tokens,
-                           cfg.d_model), generator=gen,
-                          device=loaded.device).to(torch.bfloat16)
+                                                             + seed)
+    embeds = torch.randn((FAMILY["batch"], getattr(cfg, count),
+                          cfg.d_model), generator=gen,
+                         device=loaded.device).to(torch.bfloat16)
     batch = {"tokens": torch.as_tensor(prompts, device=loaded.device),
-             "patch_embeds": patches}
+             key: embeds}
     plen = _prompt_len(batch)
+    if key == "frame_embeds" and plen != prompts.shape[1]:
+        raise SmokeError(f"{label}: the frames counted as decoder "
+                         f"positions ({plen} for {prompts.shape[1]} tokens)")
     spec = serve.fixed_spec(args0, cfg)
     out = {}
     for run, (flags, kernels) in FAMILY_RUNS[label].items():
@@ -2645,19 +2753,20 @@ def vlm_serve(torch, np, label, loaded, launches):
                                      f"{spec.max_depth}")
             r["pages_per_row"] = want
             log(f"{label} {run}: each row reserved {want} pages of "
-                f"{FAMILY['page_size']} for {plen} prefix + text positions "
+                f"{FAMILY['page_size']} for {plen} decoder positions "
                 f"+ {FAMILY['tokens']} tokens + {spec.max_depth}")
-        family_finite(torch, np, loaded, prompts, r["out"], extra=patches)
+        family_finite(torch, np, loaded, prompts, r["out"],
+                      extra={key: embeds})
         for name, n in r["counts"].items():
             launches[name] += n
         drop_engines(torch)
-    return out
+    return out, batch
 
 
-def hybrid_replay(torch, np, label, loaded, launches):
-    """(c)'s replay through the serve entry point: every request DONE with
-    its full budget, every forward through B2 once a site, pools
-    drained."""
+def recurrent_replay(torch, np, label, loaded, launches):
+    """(c)'s and (d)'s replay through the serve entry point: every request
+    DONE with its full budget, every forward through B2 once a site (none
+    in xLSTM), pools drained."""
     from repro_torch.launch import serve
     args = serve.parse_args(family_argv(FAMILY_ARCHS[label], FAMILY_REPLAY))
     reset_counts()
@@ -2679,8 +2788,10 @@ def hybrid_replay(torch, np, label, loaded, launches):
     eng = res["engines"][0]
     if not (eng.sched_pool_conserved() and eng.sched_drained()):
         raise SmokeError(f"{label} replay: the page pool leaked")
-    gate_counts(f"{label} replay", counts, ("paged_tree_attention",),
-                attention_layers(loaded.cfg) * stats["device_steps"])
+    layers = attention_layers(loaded.cfg)
+    gate_counts(f"{label} replay", counts,
+                ("paged_tree_attention",) if layers else (),
+                layers * stats["device_steps"])
     graphs = graph_summary(res["engines"])
     if not graphs["captures"] or not graphs["replays"]:
         raise SmokeError(f"{label} replay: no captured step replayed "
@@ -2703,19 +2814,69 @@ def hybrid_replay(torch, np, label, loaded, launches):
     return out
 
 
+def profile_generate(torch, eng, batch):
+    """One ``generate`` of ``FAMILY["tokens"]`` on ``eng`` under
+    torch.profiler (device activity only), after a warm-up one: the
+    device summary and the steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import device_summary
+    eng.generate(batch, FAMILY["tokens"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, stats = eng.generate(batch, FAMILY["tokens"])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return dict(_as_smoke_error(device_summary, prof, wall_us),
+                steps=stats["device_steps"])
+
+
+def family_profile(torch, label, loaded, batch):
+    """The graphed dense run of (d) and (e) profiled (device activity
+    only), after a warm-up run on the same engine: (d) through
+    ``launch/profile_serve.py``, (e) as one ``generate`` with its frames
+    (the serve has no frame flag).  Busy and idle, activities a step,
+    device time by class."""
+    from repro_torch.launch import profile_serve as ps
+    from repro_torch.launch import serve
+    args = serve.parse_args(family_argv(FAMILY_ARCHS[label]))
+    if batch is None:
+        r = _as_smoke_error(ps.profile_serve, args, loaded)
+    else:
+        eng = serve.build_engine(
+            args, loaded, max_len=int(batch["tokens"].shape[1])
+            + FAMILY["tokens"] + serve.fixed_spec(args, loaded.cfg).max_depth)
+        r = profile_generate(torch, eng, batch)
+        del eng
+    busy = max(r["busy_ms"], 1e-9)
+    log(f"{label} {loaded.cfg.name} profiled (graphed, dense): wall "
+        f"{r['wall_ms']:.1f} ms, busy {r['busy_ms']:.1f} ms, idle share "
+        f"{r['idle_share']:.3f}, {r['activities'] / max(r['steps'], 1):.0f}"
+        f" activities a step over {r['steps']} steps; by class: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.3f})" for k, v in sorted(
+            r["by_class"].items(), key=lambda kv: -kv[1])))
+    drop_engines(torch)
+    return {k: r[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                              "activities", "steps", "by_class")}
+
+
 def phase_families(torch, np, launches, card):
     """Phase 4d: (a) ``qwen3-moe-30b-a3b`` served dense and paged int8
     with the sparse tree kernel, (b) ``llava-next-mistral-7b``'s
     ``generate`` with its patch prefix, dense and paged bf16, (c)
     ``zamba2-7b`` served dense and paged and replayed through the
-    continuous scheduler; one model on the card at a time."""
+    continuous scheduler, (d) ``xlstm-125m`` served dense and paged and
+    replayed, (e) ``seamless-m4t-medium``'s ``generate`` with its frames,
+    dense, paged bf16 and paged int8; (d) and (e) profiled; one model on
+    the card at a time."""
     out = {}
     for label in FAMILY_ARCHS:
         t0 = time.perf_counter()
         loaded = family_load(torch, label)
         cfg = loaded.cfg
-        if label == "(b) vlm":
-            runs = vlm_serve(torch, np, label, loaded, launches)
+        batch = None
+        if label in FAMILY_EMBEDS:
+            runs, batch = embeds_serve(torch, np, label, loaded, launches)
         else:
             runs = family_serve(torch, np, label, loaded, launches)
         from repro_torch.core.speculative import tree as T
@@ -2724,9 +2885,12 @@ def phase_families(torch, np, launches, card):
                             FAMILY["width"])
         sizes = family_bytes(cfg, loaded, FAMILY["batch"],
                              spec.width, spec.n_paths, spec.max_depth)
-        if label == "(c) hybrid":
-            runs["replay"] = hybrid_replay(torch, np, label, loaded,
-                                           launches)
+        if label in ("(c) hybrid", "(d) xlstm"):
+            runs["replay"] = recurrent_replay(torch, np, label, loaded,
+                                              launches)
+        if label in ("(d) xlstm", "(e) encdec"):
+            runs["profile"] = family_profile(torch, label, loaded, batch)
+        del batch
         for r in runs.values():
             r.pop("out", None)
         text = ", ".join(f"{k} {v / 1e9:.2f} GB" if k.endswith("bytes")
@@ -3253,16 +3417,18 @@ def phase_sparse_study(torch, np, launches):
 
 
 def time_row(torch, card, key, symbol, kernel_fn, plain_fn, sets, nbytes,
-             ops, dtype, library=None, note="", optional=()):
+             ops, dtype, library=None, note="", optional=(),
+             library_ms=None):
     """Time one kernel at one shape: CUDA events around calls (ms), the
     profiler's device time, the plain version and, where given, the
-    library call ``(fn, its input sets)``; with the bound of ``nbytes``
-    and ``ops``."""
+    library call ``(fn, its input sets)`` (or its time ``library_ms``,
+    measured by the caller); with the bound of ``nbytes`` and ``ops``."""
     kernel_ms = timed(torch, kernel_fn, sets)
     call_host = host_ms(torch, kernel_fn, sets)
     dev_ms = device_ms(torch, kernel_fn, sets, symbol, optional=optional)
     plain_ms = timed(torch, plain_fn, sets)
-    library_ms = None if library is None else timed(torch, *library)
+    if library is not None:
+        library_ms = timed(torch, *library)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     lib = "none" if library_ms is None else f"{library_ms:.4f}"
     log(f"timing {key} ({card}): kernel_ms {kernel_ms:.4f} (device "
@@ -3513,7 +3679,7 @@ def main():
     def shapes(prefix):
         """The family shapes' rows of one kernel (phase 5)."""
         return {k: {f: v[f] for f in ("device_ms", "kernel_ms", "plain_ms",
-                                      "bound_ms", "bound_by")}
+                                      "library_ms", "bound_ms", "bound_by")}
                 for k, v in family_rows.items() if k.startswith(prefix)}
     t, d = timing["verify W=8"], timing["decode W=1"]
     b2, b2d = paged["B2 bfloat16 pool W=8"], paged["B2 bfloat16 pool W=1"]

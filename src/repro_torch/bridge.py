@@ -1,10 +1,10 @@
 """Weight bridge: the reference's params as the port's tensors.
 
-The reference keeps params as nested dicts with per-layer stacks on a
-leading L axis and the ``x @ W`` layout (``repro/models/transformer.py``
-``init_params``, ``repro/core/speculative/medusa.py`` ``init_medusa``).  The
-port keeps the same structure and layout, so the bridge is a leaf-by-leaf
-copy.  It takes numpy arrays (the caller converts the JAX arrays; this
+The reference keeps params as nested dicts (the xLSTM stack: a tuple of
+per-layer dicts) with per-layer stacks on a leading L axis and the ``x @
+W`` layout (``repro/models/transformer.py`` ``init_params``,
+``repro/core/speculative/medusa.py`` ``init_medusa``).  The port keeps the
+same structure and layout, so the bridge is a leaf-by-leaf copy.  It takes numpy arrays (the caller converts the JAX arrays; this
 module imports no JAX) and never draws random numbers.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.devices import resolve_device
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device, dtype):
@@ -28,13 +29,12 @@ def _tensor(a, device, dtype):
 
 
 def _convert(tree, device, dtype):
-    if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
-    return _tensor(tree, device, dtype)
+    return tree_map(lambda a: _tensor(a, device, dtype), tree)
 
 
 def params_from_jax(cfg, tree, device="cuda", dtype=None):
-    """Model params (nested dict of numpy arrays) -> the port's params.
+    """Model params (nested dicts and tuples of numpy arrays) -> the
+    port's params.
     Every leaf keeps its dtype (the MoE router and the Mamba2 ``A_log``,
     ``D`` and ``dt_bias`` are float32 in every config) unless ``dtype``
     casts all floating leaves."""

@@ -5,7 +5,10 @@ the same ``[train]`` lines), on the GPU unless ``--device cpu`` is given.
       --steps 50 --batch 8 --seq 64 [--save ckpt.npz] [--device cpu]
 
 Params are random from ``--seed`` (the port's generator); batches come
-from the Markov corpus (``data/pipeline.py``).  ``--save`` writes the
+from the Markov corpus (``data/pipeline.py``).  An enc-dec (audio) arch
+gets zero frame embeds of ``(batch, encoder_seq_len, d_model)`` in the
+model's dtype with every batch, as the reference feeds its stubbed
+frontend.  ``--save`` writes the
 trained params through ``training/checkpoint.py``, which ``serve --ckpt``
 restores.
 """
@@ -69,6 +72,10 @@ def run(args) -> dict:
         if i == WARMUP:
             _sync(device)
             tw = time.perf_counter()
+        if cfg.frontend == "audio":
+            batch["frame_embeds"] = torch.zeros(
+                (args.batch, cfg.encoder_seq_len, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device=device)
         params, opt, m = train_step(cfg, model, params, opt, batch,
                                     lr=args.lr)
         metrics.append(m)

@@ -14,9 +14,13 @@
 
 ``batch`` for prefill is a dict {"tokens": (B,S)} and, for the VLM family,
 {"patch_embeds": (B,T,d)}: the pre-projected patch embeddings (the vision
-tower is stubbed) join the decoder sequence before the token embeddings.
-The dense, MoE and VLM families share the transformer stack; the hybrid
-family is Zamba2's.  xLSTM and enc-dec come with ROADMAP A11.
+tower is stubbed) join the decoder sequence before the token embeddings;
+for the enc-dec family {"frame_embeds": (B,Senc,d)} (or a precomputed
+"enc_out"): the stubbed audio frontend's frames, which the encoder reads
+and which are not decoder positions.  Embeddings are cast to the model's
+dtype.  The dense, MoE and VLM families share the transformer stack; the
+hybrid family is Zamba2's, the ssm family xLSTM's, the audio family the
+enc-dec stack.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +101,65 @@ def _hybrid(cfg):
                  family="hybrid")
 
 
+def _xlstm(cfg):
+    def prefill(params, batch, *, max_len=None, window=0, return_cache=True):
+        return xlstm_model.prefill(cfg, params, batch["tokens"],
+                                   return_cache=return_cache)
+
+    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
+        del tree_kernel              # no KV: nothing to split
+        return xlstm_model.verify(cfg, params, cache, tree_tokens,
+                                  paths=tree.paths, node_path=tree.node_path,
+                                  node_depth=tree.node_depth)
+
+    def decode(params, cache, tokens):
+        return xlstm_model.decode(cfg, params, cache, tokens)
+
+    def commit(cache, extras, tree, accept_nodes, n_accept, path_idx):
+        return xlstm_model.commit(cfg, cache, extras, accept_nodes, n_accept,
+                                  path_idx, tree.max_depth)
+
+    def init_params(gen):
+        return xlstm_model.init_params(cfg, gen)
+
+    return Model(cfg=cfg, init_params=init_params, prefill=prefill,
+                 decode=decode, verify=verify, commit=commit, family="ssm")
+
+
+def _encdec(cfg):
+    def prefill(params, batch, *, max_len=None, window=0, return_cache=True):
+        dt = params["embed"].dtype
+        frames, enc_out = batch.get("frame_embeds"), batch.get("enc_out")
+        return encdec.prefill(
+            cfg, params, batch["tokens"],
+            frame_embeds=None if frames is None else frames.to(dt),
+            enc_out=None if enc_out is None else enc_out.to(dt),
+            max_len=max_len, window=window, return_cache=return_cache)
+
+    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
+        del tree_kernel              # the reference drops it: always fused
+        return encdec.verify(cfg, params, cache, tree_tokens, tree.depth,
+                             tree.mask)
+
+    def decode(params, cache, tokens):
+        return encdec.decode(cfg, params, cache, tokens)
+
+    def commit(cache, extras, tree, accept_nodes, n_accept, path_idx):
+        return encdec.commit(cfg, cache, extras, accept_nodes, n_accept,
+                             tree.max_depth)
+
+    def init_params(gen):
+        return encdec.init_params(cfg, gen)
+
+    return Model(cfg=cfg, init_params=init_params, prefill=prefill,
+                 decode=decode, verify=verify, commit=commit, family="audio")
+
+
 def get_model(cfg) -> Model:
-    if cfg.is_encoder_decoder or cfg.arch_type == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} family is not yet ported "
-            f"(ROADMAP A11); the port serves the dense, MoE, VLM and "
-            f"hybrid families")
+    if cfg.is_encoder_decoder:
+        return _encdec(cfg)
     if cfg.arch_type == "hybrid":
         return _hybrid(cfg)
+    if cfg.arch_type == "ssm":
+        return _xlstm(cfg)
     return _dense_like(cfg, cfg.arch_type)       # dense | moe | vlm

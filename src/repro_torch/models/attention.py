@@ -69,20 +69,26 @@ BLOCKED_PREFILL_THRESHOLD = 4096      # S above which prefill uses tiling
 PREFILL_BLOCK = 1024
 
 
-def attn_prefill(cfg, p, x, *, window=0):
-    """Full-sequence causal (optionally windowed) attention.  Returns
-    (out, (k, v)) with k/v the rope'd cache entries for positions [0, S).
-    Long sequences use the blocked online-softmax path, which never builds
-    the (B, H, S, S) score tensor."""
+def attn_prefill(cfg, p, x, *, window=0, causal=True):
+    """Full-sequence causal (optionally windowed) or, with ``causal=False``
+    (the encoder), bidirectional attention.  Returns (out, (k, v)) with k/v
+    the rope'd cache entries for positions [0, S).  Long causal sequences
+    use the blocked online-softmax path, which never builds the (B, H, S,
+    S) score tensor; the bidirectional one always builds it, as in the
+    reference."""
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = _qkv(cfg, p, x, positions)
     scale = cfg.head_dim ** -0.5
-    if S >= BLOCKED_PREFILL_THRESHOLD and S % PREFILL_BLOCK == 0:
+    if causal and S >= BLOCKED_PREFILL_THRESHOLD and S % PREFILL_BLOCK == 0:
         o = _blocked_causal_attend(q, k, v, scale, window=window,
                                    block=PREFILL_BLOCK)
     else:
-        mask = prefill_mask(S, window, device=x.device)[None, None]
+        if causal:
+            mask = prefill_mask(S, window, device=x.device)[None, None]
+        else:
+            mask = torch.ones((1, 1, S, S), dtype=torch.bool,
+                              device=x.device)
         o = cm.gqa_attend(q, k, v, mask, scale)
     out = o.reshape(B, S, -1) @ p["wo"]
     return out, (k, v)
@@ -116,6 +122,39 @@ def _blocked_causal_attend(q, k, v, scale, *, window=0, block=1024):
         l = torch.clamp(l, min=1e-30)
         outs.append((o * (1.0 / l.transpose(1, 2))[..., None]).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def attn_cross(cfg, p, x, enc_k, enc_v):
+    """Encoder-decoder cross-attention: queries over the fixed encoder
+    memory ``enc_k/enc_v (B, Senc, Hkv, hd)`` (``cross_kv_init``), every
+    key seen; the queries are not rotated.  Plain PyTorch, as the
+    reference's ``gqa_attend``."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(cfg.num_heads, hd)
+    if cfg.qk_norm:
+        q = cm.rmsnorm(q, p["q_norm"], cfg.rmsnorm_eps)
+    mask = torch.ones((1, 1, S, enc_k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    o = cm.gqa_attend(q, enc_k, enc_v, mask, hd ** -0.5)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_kv_init(cfg, p, enc_out):
+    """The cross-attention K/V memory of one decoder layer from the
+    encoder's output (B, Senc, d): each (B, Senc, Hkv, hd), not rotated."""
+    B, S, _ = enc_out.shape
+    hd = cfg.head_dim
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].reshape(cfg.num_kv_heads, hd)
+        v = v + p["bv"].reshape(cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        k = cm.rmsnorm(k, p["k_norm"], cfg.rmsnorm_eps)
+    return k, v
 
 
 def attn_verify(cfg, p, x, *, ck, cv, key_pos, pos, tree_depth, tree_mask,

@@ -13,6 +13,8 @@ state at its accepted (depth, path) and writes the accepted KVs.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import common as cm
@@ -220,7 +222,7 @@ def commit(cfg, cache: Cache, extras, accept_nodes, n_accept, path_idx,
     new_kv = kv_commit(kv, extras["tree_k"], extras["tree_v"], accept_nodes,
                        n_accept, max_depth)
     ds = extras["depth_states"]
-    return Cache(kv=new_kv, mamba=MambaState(
+    return dataclasses.replace(cache, kv=new_kv, mamba=MambaState(
         ssm=sel(ds["ssm"], ms.ssm), conv=sel(ds["conv"], ms.conv),
         pos=new_kv.pos))
 

@@ -14,6 +14,8 @@ its block table by ``bulk_write``/``kv_commit``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import common as cm
@@ -158,8 +160,8 @@ def decode(cfg, params, cache: Cache, tokens):
         tree_depth=torch.zeros((1,), dtype=torch.int32, device=dev),
         tree_mask=torch.ones((1, 1), dtype=torch.bool, device=dev))
     k1, v1 = extras["tree_kv"]
-    kv = bulk_write(cache.kv, k1, v1, start=cache.kv.pos)
-    return logits, Cache(kv=kv)
+    return logits, dataclasses.replace(
+        cache, kv=bulk_write(cache.kv, k1, v1, start=cache.kv.pos))
 
 
 def commit(cfg, cache: Cache, extras, accept_nodes, n_accept, max_depth):
@@ -170,5 +172,5 @@ def commit(cfg, cache: Cache, extras, accept_nodes, n_accept, max_depth):
     keep their previous contents.
     """
     k_new, v_new = extras["tree_kv"]                         # (L,B,W,Hkv,hd)
-    return Cache(kv=kv_commit(cache.kv, k_new, v_new, accept_nodes,
-                              n_accept, max_depth))
+    return dataclasses.replace(cache, kv=kv_commit(
+        cache.kv, k_new, v_new, accept_nodes, n_accept, max_depth))

@@ -28,14 +28,25 @@ Recurrent state (``MambaState``, the hybrid family's Mamba2 layers)
   C)`` in the model's dtype, batch on axis 1 as in the KV stacks, with
   ``pos (B,)``.
 
+xLSTM state (``XLSTMState``, the ssm family: no KV at all)
+- ``layers``: a tuple of per-layer dicts of float32 state tensors (mLSTM
+  ``C (B, nh, hd, hd)``, ``n``, ``m``; sLSTM ``c``, ``n``, ``h``, ``m``
+  ``(B, d)``), batch on axis 0, with ``pos (B,)``.
+
+Cross memory (the enc-dec family): ``cross_k``/``cross_v (L, B, Senc,
+Hkv, hd)``, computed once at prefill and only read after it, batch on
+axis 1.
+
 The reference's jits donate the cache; here the K/V tensors (and the paged
 pool) are updated in place, while ``key_pos``/``pos``, the block tables,
 the int8 scales and the recurrent state are rebuilt, so a caller holding
 the previous ``key_pos``/``pos`` can still restore them.  The continuous
 scheduler's row surgery (``tile_rows``, ``blank_paged_rows``,
 ``reset_rows``, ``insert_rows``, ``slice_row``, ``write_row_at``) follows
-the same rule; chunked prefill (``slice_row``, ``write_row_at``) takes
-KV-only caches.
+the same rule (the cross memory, like K/V, is written in place); chunked
+prefill (``slice_row``, ``write_row_at``) takes KV-only caches.  A cache
+with no KV (xLSTM) has no capacity limit and no pages: the paged layout
+leaves it as it is.
 """
 from __future__ import annotations
 
@@ -100,16 +111,25 @@ class MambaState:
 
 
 @dataclasses.dataclass
+class XLSTMState:
+    layers: tuple            # per-layer dict of float32 state (batch axis 0)
+    pos: torch.Tensor        # (B,) int32
+
+
+@dataclasses.dataclass
 class Cache:
-    """Decode-state cache of every ported family (unused fields None): the
-    self-attention KV and the Mamba2 layers' recurrent state.  The xLSTM
-    and cross-attention states come with ROADMAP A11."""
+    """Decode-state cache of every family (unused fields None): the
+    self-attention KV, the Mamba2 layers' and the xLSTM layers' recurrent
+    state and the enc-dec cross memory ``(L, B, Senc, Hkv, hd)``."""
     kv: Optional[KVCache | PagedKVCache] = None
     mamba: Optional[MambaState] = None
+    xlstm: Optional[XLSTMState] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
     @property
     def pos(self) -> torch.Tensor:
-        for c in (self.kv, self.mamba):
+        for c in (self.kv, self.mamba, self.xlstm):
             if c is not None:
                 return c.pos
         raise ValueError("empty cache")
@@ -421,8 +441,9 @@ def _zero_page_scales(scale, pages, mask):
 # (runtime/continuous.py).  A batched cache is a bank of B independent rows;
 # the scheduler admits sequences into rows and evicts them at chunk
 # boundaries, and every helper below touches only the rows it names.  The
-# recurrent state's leaves carry batch on axis 1 (``ssm``, ``conv``) or 0
-# (``pos``); each helper maps over them with ``_mamba_map``.
+# non-KV leaves carry batch on axis 1 (Mamba ``ssm``/``conv``, the cross
+# memory) or 0 (``pos``, the xLSTM states); ``_state_map`` maps a helper
+# over them.
 # --------------------------------------------------------------------------
 def _set_row(t, row, value):
     """A copy of the small per-row tensor ``t`` with ``t[row] = value``."""
@@ -441,8 +462,29 @@ def _mamba_map(fn, *states: MambaState) -> Optional[MambaState]:
                                          ("pos", 0))})
 
 
+def _state_map(fn, *caches: Cache, cross=None) -> dict:
+    """The non-KV fields of caches of one structure, as ``Cache``
+    keywords: ``fn(batch_axis, *leaves)`` over the recurrent leaves, and
+    ``cross(*leaves)`` (default ``fn`` at axis 1) over the cross memory."""
+    c = caches[0]
+    xl = None
+    if c.xlstm is not None:
+        xl = XLSTMState(
+            layers=tuple({k: fn(0, *(x.xlstm.layers[i][k] for x in caches))
+                          for k in layer}
+                         for i, layer in enumerate(c.xlstm.layers)),
+            pos=fn(0, *(x.xlstm.pos for x in caches)))
+    cross = cross or (lambda *ts: fn(1, *ts))
+    return dict(
+        mamba=_mamba_map(fn, *(x.mamba for x in caches)), xlstm=xl,
+        **{f: None if getattr(c, f) is None
+           else cross(*(getattr(x, f) for x in caches))
+           for f in ("cross_k", "cross_v")})
+
+
 def _kv_only(cache: Cache, what: str) -> None:
-    if cache.mamba is not None:
+    if cache.mamba is not None or cache.xlstm is not None \
+            or cache.cross_k is not None:
         raise ValueError(f"{what} supports KV-only caches (chunked prefill "
                          f"is attention-family only)")
 
@@ -450,14 +492,15 @@ def _kv_only(cache: Cache, what: str) -> None:
 def tile_rows(cache: Cache, batch: int) -> Cache:
     """Broadcast a batch-1 dense cache to ``batch`` identical rows (the
     scheduler bootstraps its resident bank once from the first admission)."""
+    def rep(axis, a):
+        return a.repeat_interleave(batch, dim=axis)
+
     kv = cache.kv
-    return Cache(kv=KVCache(
-        k=kv.k.repeat_interleave(batch, dim=1),
-        v=kv.v.repeat_interleave(batch, dim=1),
-        key_pos=kv.key_pos.repeat_interleave(batch, dim=0),
-        pos=kv.pos.repeat_interleave(batch, dim=0), window=kv.window),
-        mamba=_mamba_map(lambda axis, a: a.repeat_interleave(batch, dim=axis),
-                         cache.mamba))
+    if kv is not None:
+        kv = KVCache(k=rep(1, kv.k), v=rep(1, kv.v),
+                     key_pos=rep(0, kv.key_pos), pos=rep(0, kv.pos),
+                     window=kv.window)
+    return Cache(kv=kv, **_state_map(rep, cache))
 
 
 def blank_paged_rows(row: Cache, batch: int, *, page_size, n_pages, max_len,
@@ -466,23 +509,28 @@ def blank_paged_rows(row: Cache, batch: int, *, page_size, n_pages, max_len,
     dense-prefilled admission: an EMPTY shared pool of ``n_pages`` pages
     and ``batch`` unreserved rows, so no slot memory is spent on rows that
     are still free.  ``kv_dtype`` picks the pool dtype (default: the
-    prefill's own; ``torch.int8`` = quantized pool)."""
+    prefill's own; ``torch.int8`` = quantized pool).  The non-KV leaves
+    are tiled (a row not yet admitted is masked); a cache with no KV
+    (xLSTM) is tiled whole."""
     dkv = row.kv
+    if dkv is None:
+        return tile_rows(row, batch)
     L, _, _, Hkv, hd = dkv.k.shape
     return Cache(kv=init_paged_kv_cache(
         L, batch, max_len, Hkv, hd, page_size=page_size, n_pages=n_pages,
         dtype=dkv.k.dtype if kv_dtype is None else kv_dtype,
         device=dkv.k.device),
-        # the recurrent rows are tiled: a row not yet admitted is masked
-        mamba=_mamba_map(lambda axis, a: a.repeat_interleave(batch, dim=axis),
-                         row.mamba))
+        **_state_map(lambda axis, a: a.repeat_interleave(batch, dim=axis),
+                     row))
 
 
 def reset_rows(cache: Cache, rows) -> Cache:
     """Clear the rows where ``rows (B,)`` (a bool tensor) holds: ``key_pos``
     -> -1 (every attention mask rejects the slot), ``pos`` -> 0, dense K/V
-    zeroed in place.  A freed row is inert until ``insert_rows`` installs a
-    freshly prefilled sequence.
+    and the cross memory zeroed in place, the recurrent state zeroed.  A
+    freed row is inert until ``insert_rows`` installs a freshly prefilled
+    sequence (a zeroed xLSTM stabilizer is not a decodable initial state:
+    the admission's prefill sets it).
 
     Paged KV: the row's ``block_table`` entries drop to -1 (its pages go
     back to the allocator host-side) and any write the dead row still
@@ -495,38 +543,45 @@ def reset_rows(cache: Cache, rows) -> Cache:
     from the wrong amax.  ``_paged_insert_row`` un-arms a reservation at
     the only sound point: reserve time, zero then arm."""
     kv = cache.kv
-    rows = torch.as_tensor(rows, dtype=torch.bool, device=kv.pos.device)
-    key_pos = torch.where(rows[:, None], -1, kv.key_pos).to(torch.int32)
-    pos = torch.where(rows, 0, kv.pos).to(torch.int32)
+    rows = torch.as_tensor(rows, dtype=torch.bool, device=cache.pos.device)
 
     def zero(axis, a):
         shape = [1] * a.dim()
         shape[axis] = rows.shape[0]
         return torch.where(rows.reshape(shape), torch.zeros_like(a), a)
 
-    mamba = _mamba_map(zero, cache.mamba)
+    def zero_cross(t):
+        t[:, torch.nonzero(rows).reshape(-1)] = 0
+        return t
+
+    state = _state_map(zero, cache, cross=zero_cross)
+    if kv is None:
+        return Cache(**state)
+    key_pos = torch.where(rows[:, None], -1, kv.key_pos).to(torch.int32)
+    pos = torch.where(rows, 0, kv.pos).to(torch.int32)
     if isinstance(kv, PagedKVCache):
         return Cache(kv=dataclasses.replace(
             kv, key_pos=key_pos, pos=pos,
             block_table=torch.where(rows[:, None], -1,
                                     kv.block_table).to(torch.int32)),
-            mamba=mamba)
+            **state)
     idx = torch.nonzero(rows).reshape(-1)
     kv.k[:, idx] = 0
     kv.v[:, idx] = 0
     return Cache(kv=KVCache(k=kv.k, v=kv.v, key_pos=key_pos, pos=pos,
-                            window=kv.window), mamba=mamba)
+                            window=kv.window), **state)
 
 
 def insert_rows(cache: Cache, row: int, src: Cache, *, pages=None) -> Cache:
     """Copy row 0 of a batch-1 cache ``src`` into row ``row`` of ``cache``
     (admission: the new request's B=1 prefill takes over the slot).  Dense
-    K/V are written in place.
+    K/V and the cross memory are written in place.
 
     When ``cache`` is paged, ``src`` is still DENSE (admission prefills at
     B=1 in the dense layout) and ``pages (max_pages,)``, the row's fresh
     reservation padded with -1, must be given: the prompt KV is scattered
-    through it into the shared pool."""
+    through it into the shared pool.  A cache with no KV ignores
+    ``pages``."""
     kv = cache.kv
 
     def put(axis, big, small):
@@ -534,19 +589,24 @@ def insert_rows(cache: Cache, row: int, src: Cache, *, pages=None) -> Cache:
         out.select(axis, row).copy_(small.select(axis, 0))
         return out
 
-    mamba = _mamba_map(put, cache.mamba, src.mamba)
+    def put_cross(big, small):
+        big[:, row] = small[:, 0].to(big.dtype)
+        return big
+
+    state = _state_map(put, cache, src, cross=put_cross)
+    if kv is None:
+        return Cache(**state)
     if isinstance(kv, PagedKVCache):
         if pages is None:
             raise ValueError("paged insert_rows needs the row's pages")
-        return Cache(kv=_paged_insert_row(kv, row, src.kv, pages),
-                     mamba=mamba)
+        return Cache(kv=_paged_insert_row(kv, row, src.kv, pages), **state)
     skv = src.kv
     kv.k[:, row] = skv.k[:, 0].to(kv.k.dtype)
     kv.v[:, row] = skv.v[:, 0].to(kv.v.dtype)
     return Cache(kv=KVCache(k=kv.k, v=kv.v,
                             key_pos=_set_row(kv.key_pos, row, skv.key_pos[0]),
                             pos=_set_row(kv.pos, row, skv.pos[0]),
-                            window=kv.window), mamba=mamba)
+                            window=kv.window), **state)
 
 
 def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages
@@ -752,14 +812,16 @@ def capacity_left(cache: Cache) -> torch.Tensor:
     caches wrap by design and report an effectively unbounded budget; the
     chunk driver folds this into its done mask so a row freezes instead of
     corrupting its own attention.  A paged row counts the slots of its
-    page reservation: reserved pages times page size, minus ``pos``."""
+    page reservation: reserved pages times page size, minus ``pos``.  A
+    cache with no KV (xLSTM: O(1) state in the context) is unbounded."""
     kv = cache.kv
     if isinstance(kv, PagedKVCache):
         n_alloc = (kv.block_table >= 0).sum(dim=1).to(torch.int32)
         return n_alloc * kv.page_size - kv.pos
-    if kv.window:
-        return torch.full(kv.pos.shape, _UNBOUNDED, dtype=torch.int32,
-                          device=kv.pos.device)
+    if kv is None or kv.window:
+        pos = cache.pos
+        return torch.full(pos.shape, _UNBOUNDED, dtype=torch.int32,
+                          device=pos.device)
     return kv.max_len - kv.pos
 
 

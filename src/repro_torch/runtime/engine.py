@@ -44,9 +44,14 @@ The KV cache is updated in place where the reference donates it.
 Families: every engine takes the prefill batch dict.  A VLM batch's
 ``patch_embeds`` join the decoder sequence, so a prompt's length
 (``_prompt_len``) counts them and a paged row reserves pages for the whole
-prefix.  A hybrid (Zamba2) engine carries the Mamba2 layers' recurrent
-state in ``Cache.mamba`` beside the shared-attention sites' KV; it admits
-whole prompts (``sched_chunked_ok`` is False).
+prefix.  An enc-dec batch's ``frame_embeds`` feed the encoder and are not
+decoder positions: ``_prompt_len`` leaves them out, and the cross memory
+rides in ``Cache.cross_k/cross_v``.  A hybrid (Zamba2) engine carries the
+Mamba2 layers' recurrent state in ``Cache.mamba`` beside the
+shared-attention sites' KV, an xLSTM engine only ``Cache.xlstm`` (no KV:
+no capacity limit, and its paged layout holds no pages on the card; the
+host still books the reservation).  The recurrent families and enc-dec
+admit whole prompts (``sched_chunked_ok`` is False).
 
 The compiled chunk (``runtime/graphs.py``): where the reference jits the
 K-step scan, the port on a CUDA device captures one decode step in a CUDA
@@ -162,7 +167,8 @@ def eager():
 
 def _prompt_len(batch) -> int:
     """Decoder-sequence length of a prefill batch: its tokens plus any VLM
-    patch embeds, which join the decoder sequence."""
+    patch embeds, which join the decoder sequence (an enc-dec batch's
+    frame embeds feed the encoder and do not)."""
     n = int(batch["tokens"].shape[1])
     if "patch_embeds" in batch:
         n += int(batch["patch_embeds"].shape[1])
@@ -272,14 +278,16 @@ def _seq_step(model, params, state, *, active):
     old ones are still intact here."""
     kv0 = state.cache.kv
     lg, cache = model.decode(params, state.cache, state.cur_token[:, None])
-    done = ~active
-    kv = cache.kv
     # as in the reference, only the KV bookkeeping is restored: a done
-    # hybrid row's recurrent state steps on (the row is inert until reset)
-    cache = dataclasses.replace(cache, kv=dataclasses.replace(
-        kv,
-        key_pos=torch.where(done[:, None], kv0.key_pos, kv.key_pos),
-        pos=torch.where(done, kv0.pos, kv.pos)))
+    # recurrent row's state steps on (the row is inert until reset), and a
+    # cache with no KV (xLSTM) restores nothing
+    if kv0 is not None:
+        done = ~active
+        kv = cache.kv
+        cache = dataclasses.replace(cache, kv=dataclasses.replace(
+            kv,
+            key_pos=torch.where(done[:, None], kv0.key_pos, kv.key_pos),
+            pos=torch.where(done, kv0.pos, kv.pos)))
     nxt = greedy(lg[:, 0])
     cur = torch.where(active, nxt, state.cur_token)
     return (SpecState(cache=cache, cur_token=cur, hidden=state.hidden),
@@ -877,7 +885,8 @@ class DecodeEngine(_PagedPoolMixin):
     # ---- continuous-batching slot protocol (runtime/continuous.py) -------
     def _batch(self, batch):
         """The prefill batch dict on the engine's device: ``tokens`` and,
-        for the VLM family, ``patch_embeds``."""
+        for the VLM family, ``patch_embeds`` (the enc-dec family:
+        ``frame_embeds``)."""
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 

@@ -9,27 +9,31 @@ one step's graph serves every length.  The chunk keeps its one host sync:
 a replay reads nothing back.
 
 The carry lives in the graph's static inputs.  K/V (the dense rows or the
-page pool) are written in place by the step, so the graph adopts the
-caller's tensors as its own; every other carried tensor (``key_pos``,
-``pos``, the block table, the int8 scales, the hybrid family's recurrent
-state ``ssm``/``conv``/``pos``, ``cur_token``, ``hidden``, ``done``,
-``rem``) the step rebuilds, so the captured step ends by copying each new
-value back into its static input and the replays chain.  The hybrid
-verify's per-depth states (``(L, D, B*P, ...)``) are transients of the
-step: they live in the graph's pool, not in the carry.  Between
-chunks the host may replace any of the small tensors (row surgery,
-admissions, new block tables, ``done``/``rem`` from the scheduler): before
-the replays each one that is not the static tensor itself is copied in.
-K/V that are not the adopted tensors (a new prefill, a new bank) take a
-new capture of the same key; the previous graph of the key is dropped, so
-a caller still holding its state keeps it intact.  The chunk's state comes
-back as the static tensors themselves: as in the reference, the carry
-passed in is consumed.
+page pool) are written in place by the step, and the enc-dec cross memory
+(``cross_k``/``cross_v``) is only read, so the graph adopts the caller's
+tensors as its own (the big tensors); every other carried tensor
+(``key_pos``, ``pos``, the block table, the int8 scales, the hybrid
+family's recurrent state ``ssm``/``conv``/``pos``, the xLSTM layers'
+states and ``pos``, ``cur_token``, ``hidden``, ``done``, ``rem``) the step
+rebuilds, so the captured step ends by copying each new value back into
+its static input and the replays chain; a big tensor the step rebuilt
+raises.  The recurrent verifies' per-depth states (``(D, B*P, ...)`` a
+layer) are transients of the step: they live in the graph's pool, not in
+the carry.  Between chunks the host may replace any of the small tensors
+(row surgery, admissions, new block tables, ``done``/``rem`` from the
+scheduler): before the replays each one that is not the static tensor
+itself is copied in.  Big tensors that are not the adopted ones (a new
+prefill, a new bank, a new cross memory) take a new capture of the same
+key; the previous graph of the key is dropped, so a caller still holding
+its state keeps it intact.  A cache with no KV and no cross memory
+(xLSTM) has no big tensor: every new state is copied in.  The chunk's
+state comes back as the static tensors themselves: as in the reference,
+the carry passed in is consumed.
 
 The key is the reference's compile key plus the shapes a jit keys on
 implicitly: draft kind, tree kernel, the tree's shape (W, max_depth,
-paths) and the cache's layout, shapes and dtypes (B included).  Two trees
-of one shape share a graph: the tree's tensors are copied into the
+paths) and the cache's layout and the name, shape and dtype of each of
+its tensors (B included).  Two trees of one shape share a graph: the tree's tensors are copied into the
 graph's static tree before the replays (``measure_acceptance`` and
 ``set_tree`` rely on it).  EOS is a static scalar, as the reference traces
 it.
@@ -76,7 +80,7 @@ from repro_torch.core.speculative.tree import Tree
 from repro_torch.core.speculative.verify import SpecState
 from repro_torch.kernels.launch import CaptureTally
 from repro_torch.runtime.cache import (Cache, KVCache, MambaState,
-                                      PagedKVCache)
+                                      PagedKVCache, XLSTMState)
 
 _TREE = ("depth", "mask", "paths", "node_path", "node_depth", "parent",
          "rank")
@@ -84,9 +88,11 @@ _TREE = ("depth", "mask", "paths", "node_path", "node_depth", "parent",
 # (copied into static inputs), and those written in place (adopted)
 _SMALL = {KVCache: ("key_pos", "pos"),
           PagedKVCache: ("block_table", "key_pos", "pos", "scale_k",
-                         "scale_v")}
-_BIG = {KVCache: ("k", "v"), PagedKVCache: ("pool_k", "pool_v")}
+                         "scale_v"), type(None): ()}
+_BIG = {KVCache: ("k", "v"), PagedKVCache: ("pool_k", "pool_v"),
+        type(None): ()}
 _MAMBA = ("ssm", "conv", "pos")      # the recurrent carry, all copied
+_CROSS = ("cross_k", "cross_v")      # read-only, adopted
 
 _CAPTURE_LOCK = threading.Lock()     # one capture at a time in the process
 
@@ -113,6 +119,50 @@ def _signature(t):
     return None if t is None else (tuple(t.shape), t.dtype)
 
 
+def _tensors(cache: Cache) -> Dict[str, Optional[torch.Tensor]]:
+    """Every tensor field of ``cache`` by name ("kv.pos", "mamba.ssm",
+    "xlstm.3.C", "cross_k", ...), in a fixed order."""
+    out = {}
+    kv = cache.kv
+    for f in _SMALL[type(kv)] + _BIG[type(kv)]:
+        out["kv." + f] = getattr(kv, f)
+    if cache.mamba is not None:
+        for f in _MAMBA:
+            out["mamba." + f] = getattr(cache.mamba, f)
+    if cache.xlstm is not None:
+        for i, layer in enumerate(cache.xlstm.layers):
+            for k, t in layer.items():
+                out[f"xlstm.{i}.{k}"] = t
+        out["xlstm.pos"] = cache.xlstm.pos
+    for f in _CROSS:
+        if getattr(cache, f) is not None:
+            out[f] = getattr(cache, f)
+    return out
+
+
+def _big(cache: Cache) -> tuple:
+    """The names of the tensors a graph adopts: K/V and the cross memory."""
+    return tuple("kv." + f for f in _BIG[type(cache.kv)]) + tuple(
+        f for f in _CROSS if getattr(cache, f) is not None)
+
+
+def _with(cache: Cache, tensors: dict) -> Cache:
+    """A new ``Cache`` of ``cache``'s structure holding ``tensors`` (names
+    as ``_tensors``)."""
+    kv = cache.kv
+    if kv is not None:
+        kv = dataclasses.replace(kv, **{
+            f: tensors["kv." + f] for f in _SMALL[type(kv)] + _BIG[type(kv)]})
+    mamba = None if cache.mamba is None else MambaState(
+        **{f: tensors["mamba." + f] for f in _MAMBA})
+    xl = None if cache.xlstm is None else XLSTMState(
+        layers=tuple({k: tensors[f"xlstm.{i}.{k}"] for k in layer}
+                     for i, layer in enumerate(cache.xlstm.layers)),
+        pos=tensors["xlstm.pos"])
+    return Cache(kv=kv, mamba=mamba, xlstm=xl,
+                 **{f: tensors.get(f) for f in _CROSS})
+
+
 class StepGraph:
     """One decode step on static buffers, captured (or, without capture,
     called once a replay).  ``step_fn(strategy, state, done, rem, eos,
@@ -123,19 +173,19 @@ class StepGraph:
 
     def __init__(self, step_fn: Callable, strategy, state: SpecState, done,
                  rem, eos_val: int, tree_kernel: str, tree_tokens=None):
-        kv = state.cache.kv
+        cache = state.cache
         self.step_fn, self.tree_kernel = step_fn, tree_kernel
-        self.layout = type(kv)
+        self.layout = type(cache.kv)
         src = strategy.tree
         self.tree = Tree(width=src.width, max_depth=src.max_depth,
                          **{f: getattr(src, f).clone() for f in _TREE})
         self.tree_src = src
         self.strategy = dataclasses.replace(strategy, tree=self.tree)
-        self.kv = dataclasses.replace(
-            kv, **{f: _clone(getattr(kv, f)) for f in _SMALL[self.layout]})
-        ms = state.cache.mamba
-        self.mamba = None if ms is None else MambaState(
-            **{f: getattr(ms, f).clone() for f in _MAMBA})
+        # the static cache: the big tensors adopted, the small ones cloned
+        self.big = _big(cache)
+        self.tensors = {n: t if n in self.big else _clone(t)
+                        for n, t in _tensors(cache).items()}
+        self.cache = _with(cache, self.tensors)
         self.cur_token = state.cur_token.clone()
         self.hidden = _clone(state.hidden)
         dev = self.cur_token.device
@@ -155,7 +205,7 @@ class StepGraph:
         """One step from the static inputs; every value it rebuilt is
         copied back into its static input, so the next replay continues
         from it.  Returns the step's ``(emitted, n)``."""
-        state = SpecState(cache=Cache(kv=self.kv, mamba=self.mamba),
+        state = SpecState(cache=_with(self.cache, self.tensors),
                           cur_token=self.cur_token, hidden=self.hidden)
         args = (self.strategy, state, self.done, self.rem, self.eos,
                 self.tree_kernel)
@@ -164,37 +214,44 @@ class StepGraph:
         else:
             state, done, rem, emitted, n, _ = self.step_fn(
                 *args, self.tree_tokens, out=self.tree_tokens)
-        kv = state.cache.kv
-        for f in _BIG[self.layout]:
-            if getattr(kv, f) is not getattr(self.kv, f):
-                raise RuntimeError(f"the step rebuilt the cache's {f}: its "
-                                   f"K/V must be written in place")
-        for f in _SMALL[self.layout]:
-            _copy_in(getattr(self.kv, f), getattr(kv, f), f)
-        self._mamba_in(state.cache.mamba)
+        new = self._same_structure(state.cache)
+        for name in self.big:
+            if new[name] is not self.tensors[name]:
+                raise RuntimeError(
+                    f"the step rebuilt the cache's {name}: its K/V must be "
+                    f"written in place and its cross memory only read")
+        self._small_in(new)
         _copy_in(self.cur_token, state.cur_token, "cur_token")
         _copy_in(self.hidden, state.hidden, "hidden")
         _copy_in(self.done, done, "done")
         _copy_in(self.rem, rem, "rem")
         return emitted, n
 
-    def _mamba_in(self, ms) -> None:
-        """Copy a recurrent state into the static one (none: none)."""
-        if (ms is None) != (self.mamba is None):
-            raise RuntimeError("mamba: the graph was captured with "
-                               f"{'no' if self.mamba is None else 'a'} "
-                               "recurrent state")
-        if ms is not None:
-            for f in _MAMBA:
-                _copy_in(getattr(self.mamba, f), getattr(ms, f),
-                         f"mamba.{f}")
+    def _same_structure(self, cache: Cache) -> dict:
+        """``cache``'s tensors by name; a cache whose fields differ from
+        the captured one's raises."""
+        new = _tensors(cache)
+        if new.keys() != self.tensors.keys():
+            missing = sorted(set(self.tensors) ^ set(new))
+            raise RuntimeError(f"the graph was captured with another cache "
+                               f"structure: {missing} differ")
+        return new
+
+    def _small_in(self, new: dict) -> None:
+        """Copy the small tensors of ``new`` into the static ones."""
+        for name, t in new.items():
+            if name not in self.big:
+                _copy_in(self.tensors[name], t, name)
 
     # ---- around it -------------------------------------------------------
     def holds(self, state: SpecState) -> bool:
-        """Whether ``state``'s K/V are the tensors this graph adopted."""
-        kv = state.cache.kv
-        return type(kv) is self.layout and all(
-            getattr(kv, f) is getattr(self.kv, f) for f in _BIG[self.layout])
+        """Whether ``state``'s big tensors (K/V, the cross memory) are the
+        tensors this graph adopted: always, for a cache that has none."""
+        cache = state.cache
+        if type(cache.kv) is not self.layout or _big(cache) != self.big:
+            return False
+        tensors = _tensors(cache)
+        return all(tensors[n] is self.tensors[n] for n in self.big)
 
     def load(self, strategy, state: SpecState, done, rem, eos_val,
              tree_tokens=None) -> None:
@@ -207,10 +264,7 @@ class StepGraph:
                 _copy_in(getattr(self.tree, f), getattr(strategy.tree, f),
                          f"tree.{f}")
             self.tree_src = strategy.tree
-        kv = state.cache.kv
-        for f in _SMALL[self.layout]:
-            _copy_in(getattr(self.kv, f), getattr(kv, f), f)
-        self._mamba_in(state.cache.mamba)
+        self._small_in(self._same_structure(state.cache))
         _copy_in(self.cur_token, state.cur_token, "cur_token")
         _copy_in(self.hidden, state.hidden, "hidden")
         _copy_in(self.done, done, "done", cast=True)
@@ -257,10 +311,7 @@ class StepGraph:
         self.tally.replayed()
 
     def state(self) -> SpecState:
-        mamba = None if self.mamba is None else \
-            dataclasses.replace(self.mamba)
-        return SpecState(cache=Cache(kv=dataclasses.replace(self.kv),
-                                     mamba=mamba),
+        return SpecState(cache=_with(self.cache, self.tensors),
                          cur_token=self.cur_token, hidden=self.hidden)
 
 
@@ -287,16 +338,13 @@ class ChunkGraphs:
     @staticmethod
     def key(strategy, state: SpecState, done, tree_kernel,
             partition="inline") -> tuple:
-        kv, ms = state.cache.kv, state.cache.mamba
-        fields = _SMALL[type(kv)] + _BIG[type(kv)]
+        kv = state.cache.kv
         return (partition, strategy.draft, tree_kernel, type(kv).__name__,
-                kv.window,
-                getattr(kv, "page_size", 0),
+                getattr(kv, "window", 0), getattr(kv, "page_size", 0),
                 strategy.tree.width, strategy.tree.max_depth,
                 tuple(_signature(getattr(strategy.tree, f)) for f in _TREE),
-                tuple(_signature(getattr(kv, f)) for f in fields),
-                None if ms is None else tuple(_signature(getattr(ms, f))
-                                              for f in _MAMBA),
+                tuple((n, _signature(t))
+                      for n, t in _tensors(state.cache).items()),
                 _signature(state.cur_token), _signature(state.hidden),
                 tuple(done.shape))
 

@@ -3,7 +3,8 @@ file layout (counterpart of ``repro/training/checkpoint.py``).
 
 Layout: a ``treedef`` entry (the bytes of the reference's
 ``str(treedef)``) and one ``leaf_{i}`` entry per leaf, numbered in JAX's
-flatten order: dict keys sorted, recursively.  The port's trees carry the
+flatten order: dict keys sorted, tuples in order, recursively
+(``repro_torch/tree.py``).  The port's trees carry the
 reference's keys (``bridge.py``) but keep insertion order, so both
 ``save`` and ``restore`` sort explicitly.  A bfloat16 leaf is written as
 the reference writes it: its raw 16-bit payload under the ``<V2`` descr
@@ -26,27 +27,10 @@ import zipfile
 import numpy as np
 import torch
 
+from repro_torch.tree import paths as _paths
+from repro_torch.tree import rebuild, treedef_str
+
 BF16_DESCR = "<V2"        # np.savez's header descr of an ml_dtypes bfloat16
-
-
-def _paths(tree, prefix=()):
-    """(key path, leaf) pairs in JAX's flatten order (sorted dict keys)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (k,))
-    else:
-        yield prefix, tree
-
-
-def treedef_str(tree) -> str:
-    """The reference's ``str(jax.tree_util.tree_flatten(tree)[1])`` for a
-    tree of nested dicts."""
-    def one(t):
-        if isinstance(t, dict):
-            return "{" + ", ".join(f"{k!r}: {one(t[k])}"
-                                   for k in sorted(t)) + "}"
-        return "*"
-    return f"PyTreeDef({one(tree)})"
 
 
 def _npy(zf, name, arr, descr=None):
@@ -100,9 +84,4 @@ def restore(path: str, like):
             t = _tensor(data[f"leaf_{i}"])
             assert tuple(old.shape) == tuple(t.shape), (old.shape, t.shape)
             new[key] = t.to(device=old.device, dtype=old.dtype)
-
-    def rebuild(tree, prefix=()):
-        if isinstance(tree, dict):
-            return {k: rebuild(v, prefix + (k,)) for k, v in tree.items()}
-        return new[prefix]
-    return rebuild(like)
+    return rebuild(like, new)

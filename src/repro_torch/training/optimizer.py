@@ -1,5 +1,5 @@
-"""AdamW over the port's nested dicts of tensors (counterpart of
-``repro/training/optimizer.py``).
+"""AdamW over the port's param trees, nested dicts and tuples of tensors
+(counterpart of ``repro/training/optimizer.py``).
 
 The reference's exact rule, leaf by leaf: moments in float32; bias
 corrections in float32 from the step count; ``delta = (m / bc1) /
@@ -18,21 +18,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 
 @dataclasses.dataclass
 class AdamWState:
     mu: dict             # float32 first moments, the params' structure
     nu: dict             # float32 second moments
     step: int            # updates applied so far
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of the same structure (the
-    first tree's key order)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def adamw_init(params) -> AdamWState:

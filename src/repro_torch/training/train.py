@@ -15,23 +15,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.speculative.medusa import medusa_logits
-from repro_torch.training.optimizer import adamw_update, tree_map
+from repro_torch.training.optimizer import adamw_update
+from repro_torch.tree import leaves, unflatten
 
 
 def _on(batch, device):
     """The batch's arrays (numpy or tensors) as tensors on ``device``."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 def lm_loss(cfg, model, params, batch):
@@ -55,20 +45,20 @@ def _value_and_grad(loss_fn, tree, *, remat=False):
     """(outputs of ``loss_fn(tree)``, grads of its first output with
     respect to every leaf of ``tree``, in ``tree``'s structure).  A leaf
     the loss does not reach gets a zero grad, as in JAX."""
-    leaves = [p.detach().requires_grad_(True) for p in _leaves(tree)]
-    live = _unflatten(tree, leaves)
+    live_leaves = [p.detach().requires_grad_(True) for p in leaves(tree)]
+    live = unflatten(tree, live_leaves)
     with torch.enable_grad():
         if remat:
             out = checkpoint(loss_fn, live, use_reentrant=False)
         else:
             out = loss_fn(live)
         loss = out[0] if isinstance(out, tuple) else out
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss, live_leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+             for p, g in zip(live_leaves, grads)]
     out = tuple(o.detach() for o in out) if isinstance(out, tuple) \
         else out.detach()
-    return out, _unflatten(tree, grads)
+    return out, unflatten(tree, grads)
 
 
 def lm_value_and_grad(cfg, model, params, batch):

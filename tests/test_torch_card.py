@@ -492,8 +492,10 @@ def test_family_shapes_match_plain_on_card():
     shapes of the MoE, VLM and hybrid families (chip_smoke.
     family_kernel_cases): zamba2-7b's site at head_dim 112 with
     Hq = Hkv = 32 (B1 and B4 in fp32 too) and qwen3-moe-30b-a3b's G=8
-    layer at head_dim 128, W=8 and W=1; one launch per call, every one
-    within fp32 2e-5 / bf16 2e-2 of its plain version."""
+    layer at head_dim 128; B1 and B2 alone at seamless-m4t-medium's
+    decoder layer (Hq = Hkv = 16, head_dim 64: its verify never splits);
+    W=8 and W=1; one launch per call, every one within fp32 2e-5 / bf16
+    2e-2 of its plain version."""
     _need_gpu()
     wrappers = (verify_attention, pa.paged_tree_attention,
                 pa.paged_cache_attention, tp.sparse_tree_attention_partial)
@@ -501,26 +503,29 @@ def test_family_shapes_match_plain_on_card():
     worst = chip_smoke.phase_family_kernel_check(torch, np)
     cases = chip_smoke.family_kernel_cases(np)
     n, n112 = len(cases), sum(c[3]["hd"] == 112 for c in cases)
-    assert n112 == 2 and n == 4
+    split = sum(c[1] not in chip_smoke.FUSED_ONLY for c in cases)
+    assert n112 == 2 and n == 6 and split == 4
     assert [w.launches - b for w, b in zip(wrappers, before)] == [
-        n + n112, 2 * n, n, n + n112]
+        n + n112, 2 * n, split, split + n112]
     assert max(worst.values()) < 2e-2
 
 
 # the families of the card's graph test: smoke configs, fp32
 FAMILY_GRAPH_ARCHS = ["qwen3-moe-30b-a3b-smoke", "llava-next-mistral-7b-smoke",
-                      "zamba2-7b-smoke"]
+                      "zamba2-7b-smoke", "xlstm-125m-smoke",
+                      "seamless-m4t-medium-smoke"]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", FAMILY_GRAPH_ARCHS)
 def test_family_graphed_chunk_equals_eager_on_card(arch, paged):
-    """The MoE, VLM (its patch prefix in the batch) and hybrid families on
-    the card: the captured step's replays give the eager chunks' tokens,
-    each forward counted once per attention layer or site through the
-    replays' tallies (the hybrid's recurrent state rides the graph's
-    static buffers)."""
+    """The MoE, VLM (its patch prefix in the batch), hybrid, xLSTM and
+    enc-dec (its frames in the batch) families on the card: the captured
+    step's replays give the eager chunks' tokens, each forward counted
+    once per attention layer or site through the replays' tallies (none
+    in xLSTM; the recurrent states ride the graph's static buffers, the
+    cross memory is adopted like K/V)."""
     from repro_torch.launch import serve
     from repro_torch.runtime.engine import eager
     _need_gpu()
@@ -533,9 +538,11 @@ def test_family_graphed_chunk_equals_eager_on_card(arch, paged):
     cfg = loaded.cfg
     batch = {"tokens": torch.as_tensor(serve.prompts(cfg, args),
                                        device=loaded.device)}
-    if cfg.frontend == "vision":
-        batch["patch_embeds"] = torch.randn(
-            (3, cfg.num_frontend_tokens, cfg.d_model),
+    extra = {"vision": ("patch_embeds", cfg.num_frontend_tokens),
+             "audio": ("frame_embeds", cfg.encoder_seq_len)}.get(cfg.frontend)
+    if extra is not None:
+        batch[extra[0]] = torch.randn(
+            (3, extra[1], cfg.d_model),
             generator=torch.Generator(device="cuda").manual_seed(2),
             device="cuda")
     spec = serve.fixed_spec(args, cfg)

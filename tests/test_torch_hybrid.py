@@ -29,20 +29,18 @@ from repro.core.speculative import tree as JT
 from repro.models import mamba2 as jmb
 from repro.models import recurrent_verify as jrv
 from repro.models.api import get_model as j_get_model
-from repro.runtime import cache as jcache
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core.speculative import tree as TT
 from repro_torch.models import hybrid as thy
 from repro_torch.models import mamba2 as tmb
 from repro_torch.models import recurrent_verify as trv
-from repro_torch.models.api import get_model as t_get_model
 from repro_torch.runtime import cache as tcache
 from repro_torch.runtime import continuous as TS
 from repro_torch.runtime.engine import SpeculativeEngine as TSpec
 from test_torch_moe import (N, continuous_equal_jax, engine_pair,
-                            engines_equal_jax, family_setup, logits_match,
-                            lm_loss_and_grads_match)
+                            engines_equal_jax, family_setup, int8_verify_gap,
+                            logits_match, lm_loss_and_grads_match)
 from test_torch_sched import _reqs
 
 ARCH = "zamba2-7b-smoke"
@@ -330,28 +328,7 @@ def test_paged_int8_sites_dequantize():
     dense verify.  The reference hands the pool over without its scales
     (``src/repro/models/hybrid.py:68-70``): its int8 verify reads raw
     codes (ROADMAP C)."""
-    cfg, tcfg = get_config(ARCH), t_get_config(ARCH)
-    jm, tm = j_get_model(cfg), t_get_model(tcfg)
-    jp = jm.init_params(jax.random.PRNGKey(0))
-    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
-    toks = np.random.default_rng(5).integers(0, cfg.vocab_size,
-                                             (2, 12)).astype(np.int32)
-    spec = _tree()
-    tt = np.random.default_rng(6).integers(0, cfg.vocab_size,
-                                           (2, spec.width)).astype(np.int32)
-    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
-    errs = {}
-    for name, m, params, tree, arr, mod in (
-            ("port", tm, tp, TT.Tree.from_spec(spec, "cpu"), _t, tcache),
-            ("reference", jm, jp, JT.Tree.from_spec(spec), jnp.asarray,
-             jcache)):
-        _, _, c = m.prefill(params, {"tokens": arr(toks)}, max_len=1)
-        dense, _ = m.verify(params, c, arr(tt), tree)
-        kw = dict(page_size=4, n_pages=8)
-        paged = mod.paginate_cache(c, arr(tables), kv_dtype="int8" if
-                                   mod is jcache else torch.int8, **kw)
-        q, _ = m.verify(params, paged, arr(tt), tree)
-        errs[name] = float(np.max(np.abs(np.asarray(q) - np.asarray(dense))))
+    errs = int8_verify_gap(ARCH)
     assert errs["port"] < 0.05, errs
     assert errs["reference"] > 10 * errs["port"], errs
 

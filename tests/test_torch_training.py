@@ -83,6 +83,9 @@ def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
     else:
         yield prefix, tree
 

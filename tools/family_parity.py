@@ -1,13 +1,21 @@
-"""How far the port's MoE, VLM and hybrid families sit from the JAX
-reference on the CPU (smoke configs, the inputs of
-``tests/test_torch_{moe,vlm,hybrid}.py``): the largest logit error through
+"""How far the port's MoE, VLM, hybrid, xLSTM and enc-dec families sit from
+the JAX reference on the CPU (smoke configs, the inputs of
+``tests/test_torch_{moe,vlm,hybrid,xlstm,encdec}.py``): the largest logit
+error through
 prefill, verify, commit and decode (``test_torch_moe.logits_match``), and
 each ``lm_loss`` grad leaf's largest error over the leaf's largest |g|.
 ``--float64`` runs the grads with float64 params in both packages (the
-Mamba2 SSD still computes in fp32 in both, as written).
+Mamba2 SSD still computes in fp32 in both, as written).  The sLSTM's
+``bi`` grad is zero in exact arithmetic, so its ratio is rounding noise
+over rounding noise.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/family_parity.py \\
         [--float64]
+
+For the families whose reference verify hands an int8 pool over without
+its scales (the hybrid, the enc-dec), it also prints each package's
+largest logit error of a verify over an int8 pool against its float
+verify (``test_torch_moe.int8_verify_gap``).
 
 Prints one line per family and leaf, and a JSON line of the largest
 errors last.  The tests hold these figures at their tolerances; this
@@ -24,7 +32,8 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))
 
 ARCHS = ("qwen3-moe-30b-a3b-smoke", "llava-next-mistral-7b-smoke",
-         "zamba2-7b-smoke")
+         "zamba2-7b-smoke", "xlstm-125m-smoke", "seamless-m4t-medium-smoke")
+INT8_ARCHS = ("zamba2-7b-smoke", "seamless-m4t-medium-smoke")
 
 
 def grad_spread(arch, dtype):
@@ -58,7 +67,7 @@ def grad_spread(arch, dtype):
     for path, g in _paths(jg):
         g = np.asarray(g, np.float64)
         t = _get(tg, path).double().numpy()
-        out["/".join(path)] = float(np.max(np.abs(t - g))
+        out["/".join(map(str, path))] = float(np.max(np.abs(t - g))
                                     / max(np.max(np.abs(g)), 1e-30))
     return out
 
@@ -72,13 +81,18 @@ def main(argv=None):
         jax.config.update("jax_enable_x64", True)
     import torch
     torch.set_num_threads(1)
-    from test_torch_moe import logits_match
+    from test_torch_moe import int8_verify_gap, logits_match
     summary = {}
     for arch in ARCHS:
         row = {}
         if not args.float64:
             row["logits"] = logits_match(arch)
             print(f"{arch}: largest logit error {row['logits']:.3e}")
+            if arch in INT8_ARCHS:
+                row["int8_verify"] = int8_verify_gap(arch)
+                print(f"{arch}: int8-pool verify against the float verify: "
+                      f"port {row['int8_verify']['port']:.3e}, reference "
+                      f"{row['int8_verify']['reference']:.3e}")
         spread = grad_spread(arch, "float64" if args.float64 else "float32")
         for leaf, e in spread.items():
             print(f"{arch}: grad {leaf}: {e:.3e} x max|g|")
