@@ -84,6 +84,19 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    auto --hcmp auto --tree-kernel auto`` (the widths chosen, the
    switches, the captures, tok/s, latency; every request DONE); (e) an
    error inside the overlap capture reaches the caller.
+4e. The paper's evaluation harness, on phase 4's ``vicuna-7b`` weights
+   after 4b's engines are freed: ``repro_torch.benchmarks.run.main``
+   in-process (``BENCH_ARGV``): Table I, Fig. 9, Fig. 10a and the
+   ablations (the estimator and the Jetson model, in a process of their
+   own), Fig. 10b and its int8 arm, the microbenchmarks, the engine grid
+   (W=8, B in {1, 4, 8}, K in {1, 8}) with its float32 parity, trained and
+   HCMP arms, the sched bench's grid and its paged, policies, adaptive,
+   faults and HCMP arms, and the int8 KV note; then ``python -m
+   repro_torch.launch.quickstart --arch qwen2-0.5b`` in a subprocess.
+   Every bench gate fails the smoke; each measured arm's launches are
+   counted from 0 (``BENCH_KERNELS``: each arm through the kernels its
+   configuration names and no other; B1-B5 each at least once) and
+   printed on a line of their own; the records go to ``results/torch/``.
 4c. Training (``training/``, ``launch/train.py``,
    ``launch/e2e_train_serve.py``), with phase 4's and 4b's engines freed:
    (a) three ``train_step``s and ``medusa_step``s from the same seeded
@@ -1219,15 +1232,8 @@ def phase_sparse_kernel_check(torch, np):
 def kernel_wrappers():
     """Every kernel wrapper of the port, by name: each counts its own
     launches in ``.launches``."""
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import tree_partial as tp
-    from repro_torch.kernels.verify_attention import verify_attention
-    return {"verify_attention": verify_attention,
-            "paged_tree_attention": pa.paged_tree_attention,
-            "paged_cache_attention": pa.paged_cache_attention,
-            "sparse_tree_attention_partial":
-                tp.sparse_tree_attention_partial,
-            "sparse_tree_attention": tp.sparse_tree_attention}
+    from repro_torch.kernels import dispatch
+    return dispatch.wrappers()
 
 
 def argv(mode, **over):
@@ -2053,6 +2059,145 @@ def phase_arca_hcmp(torch, np, loaded, card, profiles, launches):
     torch.cuda.empty_cache()
     log(f"ARCA and HCMP phase took {time.perf_counter() - t0:.1f}s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the evaluation harness
+# ---------------------------------------------------------------------------
+# the harness's entry point at vicuna-7b full width on phase 4's weights:
+# the engine grid at W=8; the sched bench's arms sized to fit the phase
+# (10 requests of 8 or 80 tokens, the policy arm's convoy trace of 32); its
+# adaptive arm's wide width is 64, since on the H100 widths 1, 2 and 8 cost
+# the same at a bank of 8 (11.0 / 11.8 / 12.2 ms a step)
+BENCH_ARGV = ["--device", "cuda", "--arch", "vicuna-7b", "--width", "8",
+              "--tokens", "16", "--prompt-len", "16", "--reps", "1",
+              "--micro-arch", "vicuna-7b", "--micro-reps", "2",
+              "--sched-arch", "vicuna-7b", "--requests", "10",
+              "--policy-requests", "32", "--budgets", "8,80",
+              "--adapt-widths", "1,2,64", "--sched-reps", "1",
+              "--sparse-reps", "20"]
+QUICKSTART = ["-m", "repro_torch.launch.quickstart", "--arch", "qwen2-0.5b"]
+# each measured arm -> the kernels its configuration names: each launched
+# at least once, no other launched
+BENCH_KERNELS = {
+    "fig10b": {"sparse_tree_attention"},
+    "fig10b int8": {"paged_tree_attention", "paged_cache_attention",
+                    "sparse_tree_attention_partial"},
+    "micro": {"verify_attention"},
+    "engine grid": {"verify_attention"},
+    "engine hcmp": {"verify_attention"},
+    "engine trained": {"verify_attention"},
+    "sched grid": {"verify_attention"},
+    "sched paged": {"verify_attention", "paged_tree_attention"},
+    "sched policies": {"paged_tree_attention"},
+    "sched adaptive": {"verify_attention"},
+    "sched faults": {"paged_tree_attention"},
+    "sched hcmp": {"verify_attention"},
+    "quickstart": {"verify_attention"},
+}
+
+
+def quickstart_counts(env_root):
+    """``python -m repro_torch.launch.quickstart --arch qwen2-0.5b`` (full
+    width) in a process of its own: its kernel launch counts."""
+    import os
+    res = subprocess.run(
+        [sys.executable, *QUICKSTART], cwd=env_root, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    if res.returncode != 0:
+        raise SmokeError(f"the quickstart failed ({res.returncode}):\n"
+                         f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    for line in lines[-4:]:
+        log(f"  quickstart: {line}")
+    if not any(x.startswith("speculative step: verified 8") for x in lines):
+        raise SmokeError("the quickstart printed no speculative step")
+    counts = [x for x in lines if x.startswith("kernel launches: ")]
+    if not counts:
+        raise SmokeError("the quickstart printed no launch counts")
+    return json.loads(counts[-1][len("kernel launches: "):])
+
+
+def phase_bench(torch, np, loaded):
+    """Phase 4e: ``repro_torch.benchmarks.run.main`` in-process on phase
+    4's ``vicuna-7b`` weights, then the quickstart at ``qwen2-0.5b`` full
+    width in a subprocess.  Every bench gate raises; each measured arm's
+    kernel launches are counted from 0 and held to ``BENCH_KERNELS``."""
+    from repro_torch.benchmarks import run as bench_run
+
+    counts, seconds = {}, {}
+
+    @contextlib.contextmanager
+    def watch(name):
+        reset_counts()
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t, 2)
+        counts[name] = read_counts()
+
+    t0 = time.perf_counter()
+    try:
+        out = bench_run.main(BENCH_ARGV, loaded=loaded, watch=watch)
+    except AssertionError as e:
+        raise SmokeError(f"phase 4e: a bench gate failed: {e}") from e
+    t_harness = time.perf_counter() - t0
+    counts["quickstart"] = quickstart_counts(ROOT)
+    elapsed = time.perf_counter() - t0
+
+    for arm, want in BENCH_KERNELS.items():
+        got = counts.get(arm)
+        if got is None:
+            raise SmokeError(f"phase 4e: arm {arm!r} did not run")
+        bad = {k: v for k, v in got.items()
+               if (k in want and v < 1) or (k not in want and v)}
+        if bad:
+            raise SmokeError(f"phase 4e: arm {arm!r} launched {got}; it "
+                             f"must launch {sorted(want)} and no other")
+    total = {k: sum(c[k] for c in counts.values())
+             for k in kernel_wrappers()}
+    if min(total.values()) < 1:
+        raise SmokeError(f"phase 4e left a kernel unlaunched: {total}")
+    print(json.dumps({"phase_4e_launches": counts, "total": total}),
+          flush=True)
+
+    eng = out["records"]["engine_bench"]
+    sch = out["records"]["sched_bench"]
+    if not eng["parity"]["equal"]:
+        raise SmokeError("phase 4e: the float32 streams differ")
+    if not eng["trained"]["acceptance"] > \
+            eng["trained"]["acceptance_random_heads"]:
+        raise SmokeError("phase 4e: trained acceptance not above random")
+    if not sch["paged"]["donation_in_place"]:
+        raise SmokeError("phase 4e: the pool was not updated in place")
+    for arm in ("fault_free", "faulted"):
+        if not (sch["faults"][arm]["terminal"]
+                and sch["faults"][arm]["pages_drained"]):
+            raise SmokeError(f"phase 4e: faults {arm} not terminal/drained")
+    grid = {f"{g['engine'][:3]} B={g['B']} K={g['K']}": round(g["tok_s"], 1)
+            for g in eng["grid"]}
+    log(f"phase 4e engine grid ({eng['arch']}, W={eng['tree_width']}, "
+        f"{eng['n_tokens']} tokens a row) tok/s: {grid}; agreement with "
+        f"sequential: {[round(g['agree_with_sequential'], 3) for g in eng['grid'] if g['engine'] == 'speculative']}; "
+        f"float32 parity {eng['parity']}")
+    log(f"phase 4e sched ({sch['arch']}): "
+        + "; ".join(f"{g['engine'][:4]} {g['sched']} {g['tok_s']:.1f} tok/s "
+                    f"p95 {g['latency_p95_s']:.3f}s" for g in sch["grid"])
+        + f"; arms (s) {sch['arm_wall_s']}")
+    rows = {name: val for name, val, _ in out["rows"]}
+    log(f"phase 4e Fig. 10b (ms, CUDA events): block "
+        f"{rows['fig10b_block_kernel_ms']:.4f}, dense-masked "
+        f"{rows['fig10b_dense_masked_ms']:.4f}, int8 fused "
+        f"{rows['int8_fused_walk_ms']:.4f}, split "
+        f"{rows['int8_split_walk_ms']:.4f}, fp32 fused "
+        f"{rows['int8_fused_fp32_walk_ms']:.4f}; errors "
+        f"{rows['int8_fused_err_vs_fp32']:.2e} / "
+        f"{rows['int8_split_err_vs_fp32']:.2e}")
+    log(f"phase 4e arms (s): {seconds}; harness {t_harness:.1f}s, "
+        f"sections {out['seconds']}; phase {elapsed:.1f}s")
+    torch.cuda.empty_cache()
+    return dict(seconds=elapsed, counts=counts, total=total)
 
 
 # ---------------------------------------------------------------------------
@@ -3658,6 +3803,9 @@ def main():
     arca_hcmp = phase_arca_hcmp(torch, np, loaded, card, profiles, launches)
     log(f"phase 4b done at {time.perf_counter() - t_start:.1f}s")
     drop_engines(torch, served, replays, profiles, arca_hcmp)
+    phase_bench(torch, np, loaded)
+    log(f"phase 4e done at {time.perf_counter() - t_start:.1f}s")
+    drop_engines(torch)
     training = phase_training(torch, np, loaded, launches)
     del loaded
     drop_engines(torch)

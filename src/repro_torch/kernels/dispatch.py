@@ -18,6 +18,18 @@ from repro_torch.kernels import tree_partial as _tree
 from repro_torch.kernels.verify_attention import verify_attention
 
 
+def wrappers() -> dict:
+    """The port's kernel wrappers by name: each counts its launches in
+    ``.launches`` (on a CPU tensor a wrapper runs its plain version and
+    counts nothing)."""
+    return {"verify_attention": verify_attention,
+            "paged_tree_attention": _paged.paged_tree_attention,
+            "paged_cache_attention": _paged.paged_cache_attention,
+            "sparse_tree_attention_partial":
+                _tree.sparse_tree_attention_partial,
+            "sparse_tree_attention": _tree.sparse_tree_attention}
+
+
 def _query_pos(q, pos, tree_depth):
     """(B, W) int32 absolute position of every tree query: ``pos`` (an int
     or (B,)) plus the node's depth."""

@@ -564,3 +564,41 @@ def test_family_graphed_chunk_equals_eager_on_card(arch, paged):
                                     max_len=max_len).generate(batch,
                                                               args.tokens)
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_fig10b_study_and_int8_arm_on_card(capsys):
+    """The harness's Fig. 10b study (``benchmarks/sparse.py``'s shape: W=64,
+    ctx 256, 32 over 8 heads, head_dim 128, fp32) and its int8 arm through
+    ``repro_torch.benchmarks.sparse.run`` on the card: B5 in the study,
+    B2 over the fp32 and the int8 pool, B3 and B4 in the split arm, each
+    launched; the block kernel within 2e-5 of its plain version and each
+    int8 walk within 3e-2 of the fp32 one (``run`` raises otherwise)."""
+    _need_gpu()
+    from repro_torch.benchmarks import sparse
+    counts = {}
+
+    def watch(name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            chip_smoke.reset_counts()
+            yield
+            torch.cuda.synchronize()
+            counts[name] = chip_smoke.read_counts()
+        return ctx()
+
+    rows = {n: v for n, v, _ in sparse.run(device="cuda", reps=2,
+                                           watch=watch)}
+    assert counts["fig10b"]["sparse_tree_attention"] >= 1
+    for name in ("paged_tree_attention", "paged_cache_attention",
+                 "sparse_tree_attention_partial"):
+        assert counts["fig10b int8"][name] >= 1, name
+    assert counts["fig10b int8"]["paged_tree_attention"] >= 2  # both pools
+    assert counts["fig10b"]["verify_attention"] == 0
+    assert rows["fig10b_block_err_vs_plain"] < sparse.FP32_TOL
+    assert rows["int8_fused_err_vs_fp32"] < sparse.INT8_BOUND
+    assert rows["int8_split_err_vs_fp32"] < sparse.INT8_BOUND
+    assert rows["int8_cache_bytes_reduction"] > 3.9
+    assert "NVIDIA" in capsys.readouterr().out

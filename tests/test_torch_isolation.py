@@ -132,14 +132,56 @@ def test_family_module_imports_alone_with_jax_blocked(module):
     _imports_alone(module)
 
 
-def _imports_alone(module):
+# the evaluation harness and the quickstart
+BENCH_MODULES = ["repro_torch.benchmarks",
+                 "repro_torch.benchmarks.benchlib",
+                 "repro_torch.benchmarks.acceptance",
+                 "repro_torch.benchmarks.throughput",
+                 "repro_torch.benchmarks.partitioning",
+                 "repro_torch.benchmarks.ablations",
+                 "repro_torch.benchmarks.sparse",
+                 "repro_torch.benchmarks.microbench",
+                 "repro_torch.benchmarks.engine_bench",
+                 "repro_torch.benchmarks.sched_bench",
+                 "repro_torch.benchmarks.roofline",
+                 "repro_torch.benchmarks.run",
+                 "repro_torch.launch.quickstart"]
+
+
+@pytest.mark.parametrize("module", BENCH_MODULES)
+def test_bench_module_imports_alone_with_jax_blocked(module):
+    """The same for the harness and the quickstart: none imports the
+    repository's ``benchmarks`` package (the reference's scripts) or
+    ``examples``, and importing one starts no process or thread."""
+    _imports_alone(module, also_blocked=("benchmarks", "examples"))
+
+
+def test_no_port_module_imports_the_reference_scripts():
+    """No module of the port imports the top-level ``benchmarks`` or
+    ``examples`` packages (the reference's harness and examples)."""
+    hits = []
+    for p in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(p.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module \
+                    and not node.level:
+                names = [node.module]
+            hits += [f"{p.relative_to(SRC)}:{node.lineno} {n}" for n in names
+                     if n.split(".")[0] in ("benchmarks", "examples")]
+    assert hits == [], hits
+
+
+def _imports_alone(module, also_blocked=()):
     assert module in _modules()
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "sys.modules['triton'] = None\n"
-        f"importlib.import_module({module!r})\n"
+        + "".join(f"sys.modules[{name!r}] = None\n" for name in also_blocked)
+        + f"importlib.import_module({module!r})\n"
         "from repro_torch.kernels import build\n"
         "assert not build._loaded, build._loaded\n"
         "import threading\n"
