@@ -148,6 +148,24 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    moves: the weights, the MoE experts (the one-hot dispatch reads all of
    them; uniform routing would pick fewer), the hybrid's and xLSTM's
    per-depth recurrent states and the enc-dec cross memory.
+4f. The multi-device dry run and DTensor on the card: (a)
+   ``launch/dryrun.py::run_case`` with fake CUDA tensors on the single
+   (16, 16) mesh (the fake process group of 256 ranks) for
+   ``vicuna-7b`` x ``decode_32k`` in ``hcmp``, in ``megatron`` and as
+   ``verify16``, and ``qwen3-moe-30b-a3b`` x ``decode_32k`` in ``hcmp``:
+   each record ``ok``, its per-device FLOPs, bytes, collective bytes by
+   op and by mesh dim and peak memory printed with its roofline row, and
+   no kernel launched; (b) ``qwen2-0.5b`` at full width in bf16 through
+   DTensor on a one-rank NCCL group's (1, 1) mesh in ``hcmp``
+   (``launch/sharded_check.py``): prefill, one W=8 verify and two decodes
+   (the second on the cache the first committed) within bf16 2e-2 of the
+   same steps on plain tensors, the counts set to 0 just before and read
+   just after: B1 once per layer a forward, no other kernel; (c) the route of a cache whose sequence is split over
+   ranks (``kernels/dispatch.py::sequence_split_attention``), the ranks'
+   slices on one card at lengths that are not multiples of 16: B3 over
+   each slice read as pages, B4 over the tree, the Eq.-1 merge, within
+   bf16 2e-2 of the plain whole-cache attention, B3 once a slice and B4
+   once.
 5. Drive the Fig. 10b study's path (the normalized tree kernel through its
    public entry point) with the counts set to 0 before it, and print the
    study's FLOP terms.  Time each kernel at the main path's shapes, the
@@ -171,7 +189,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    3c's family shapes (B1 and B2 at the seamless layer) beside their
    plain versions, bounds and library calls (sdpa; over the gathered view
    for B2; the efficient-attention kernel with its log-sum-exp for B3 and
-   B4): the ``families`` entries of the kernels line.
+   B4): the ``families`` entries of the kernels line.  Time one call of
+   B1, B2, B3 and B4 at verify W=8 through its custom op (the dry run's
+   route, ``kernels/registered.py``) against the direct call, in
+   alternating windows on the host's clock.
 6. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Without a GPU, or outside a checkout, it fails and prints no result.
@@ -3761,6 +3782,232 @@ def phase_tree_rows(torch, np, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: the multi-device dry run, and one DTensor step on the card
+# ---------------------------------------------------------------------------
+# (arch, shape, mode, variant) run on the single (16, 16) mesh with fake
+# CUDA tensors
+DRYRUN_CASES = [("vicuna-7b", "decode_32k", "hcmp", "baseline"),
+                ("vicuna-7b", "decode_32k", "megatron", "baseline"),
+                ("vicuna-7b", "decode_32k", "hcmp", "verify16"),
+                ("qwen3-moe-30b-a3b", "decode_32k", "hcmp", "baseline")]
+# the real step through DTensor: one NCCL rank, a (1, 1) mesh
+DTENSOR_STEP = dict(arch="qwen2-0.5b", mode="hcmp", batch=4, prompt=512,
+                    width=8)
+
+
+def phase_dryrun(torch, card):
+    """Phase 4f (a): ``launch/dryrun.py::run_case`` on DRYRUN_CASES (fake
+    CUDA tensors on the fake process group of 256 ranks; nothing is
+    allocated, no kernel launches: every count stays 0), each record's
+    per-device FLOPs, bytes, collective bytes (by op and by mesh dim) and
+    peak memory printed with its roofline row.  A record whose status is
+    not ``ok`` fails the phase."""
+    import tempfile
+    from repro_torch.benchmarks import roofline
+    from repro_torch.launch import dryrun
+    out = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, mode, variant in DRYRUN_CASES:
+            t0 = time.perf_counter()
+            rec = dryrun.run_case(arch, shape, mode=mode, variant=variant,
+                                  out_dir=tmp, force=True, verbose=False,
+                                  device=DEVICE)
+            label = f"{arch} x {shape} {mode}/{variant}"
+            if rec["status"] != "ok":
+                raise SmokeError(f"dry run {label}: {rec['status']}: "
+                                 f"{rec.get('error', rec.get('reason'))}\n"
+                                 f"{rec.get('traceback', '')}")
+            row = roofline.analyse(rec)
+            coll = rec["collectives"]
+            log(f"dryrun {label} ({rec['n_devices']} devices; {card}): per "
+                f"device {rec['flops'] / 1e9:.3f} GFLOP, "
+                f"{rec['bytes_accessed'] / 1e9:.3f} GB accessed, "
+                f"collectives {coll} bytes, by mesh dim "
+                f"{rec['collectives_by_mesh_dim']}, peak "
+                f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB; roofline "
+                f"compute {row['compute_s'] * 1e3:.3f} ms, memory "
+                f"{row['memory_s'] * 1e3:.3f} ms, collective "
+                f"{row['collective_s'] * 1e3:.3f} ms: {row['bound']}-bound; "
+                f"{time.perf_counter() - t0:.1f}s")
+            out[label] = dict(record={k: rec[k] for k in (
+                "flops", "bytes_accessed", "collectives",
+                "collectives_by_mesh_dim", "memory", "n_devices")},
+                roofline=row)
+    counts = read_counts()
+    if any(counts.values()):
+        raise SmokeError(f"the dry run launched kernels on fake memory: "
+                         f"{counts}")
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dtensor_step(torch, np, card):
+    """Phase 4f (b): ``qwen2-0.5b`` at full width in bf16, random weights
+    from seed 0, through ``launch/sharded_check.py``: prefill, one W=8
+    tree verify and two decodes (the second on the cache the first
+    committed) on plain tensors, then the same four through DTensor in
+    ``hcmp`` on a one-rank NCCL group's (1, 1) mesh.  The logits within
+    bf16 2e-2 of the plain steps'; the counts set to 0 just before the
+    DTensor run and read just after: B1 once per layer for each of its
+    three forwards (verify, two decodes), no other kernel."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharded_check as sc
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.api import get_model
+    st = DTENSOR_STEP
+    cfg = get_config(st["arch"])
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    x = sc.inputs(cfg, B=st["batch"], P=st["prompt"], W=st["width"],
+                  device=DEVICE)
+    t0 = time.perf_counter()
+    plain = sc.steps(model, params, x)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_smoke_mesh(1, device_type=DEVICE)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = sc.sharded(cfg, params, mesh, st["mode"], x)
+        torch.cuda.synchronize()
+        t_dt = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        dist.destroy_process_group()
+    want = dict.fromkeys(counts, 0)
+    want["verify_attention"] = 3 * cfg.num_layers
+    if counts != want:
+        raise SmokeError(f"the DTensor steps launched {counts}, expected "
+                         f"{want}")
+    diffs = sc.max_diffs(got, plain)
+    tol = TOL[str(getattr(torch, cfg.dtype))]
+    for k, v in got.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise SmokeError(f"DTensor {k} logits are not finite")
+    if max(diffs.values()) > tol:
+        raise SmokeError(f"DTensor logits off the plain steps' by {diffs} "
+                         f"(tolerance {tol})")
+    log(f"dtensor step {cfg.name} {st['mode']} on a (1, 1) mesh (one NCCL "
+        f"rank; B={st['batch']}, prompt {st['prompt']}, W={st['width']}; "
+        f"{card}): largest logit difference to the plain steps {diffs} "
+        f"(tolerance {tol}); launches {counts}; {t_dt:.2f}s through "
+        f"DTensor against {t_plain:.2f}s plain")
+    return dict(diffs=diffs, launches=counts, seconds=t_dt,
+                plain_seconds=t_plain)
+
+
+# the sequence-split route's slices on one card: page sizes 8, 4, 2, 1 and
+# 8 (each the largest of 16, 8, ... that divides the slice); the last
+# slice lies past every row's position.  At the heads of the main path's
+# model and of phase 4f (b)'s.
+SEQ_SPLIT = dict(archs=(MAIN["arch"], "qwen2-0.5b"),
+                 lengths=(136, 132, 130, 129, 24), pos=420)
+
+
+def phase_sequence_split(torch, np, card):
+    """Phase 4f (c): the route a DTensor verify takes when the cache's
+    sequence is split over ranks (``dispatch.sequence_split_attention``),
+    with the ranks' slices on one card: B3 over each slice read as pages
+    of its own size, B4 over the tree, the Eq.-1 merge, held against the
+    plain tree attention over the whole cache at verify W=8 (the main
+    path's tree, bf16).  For each arch the counts are set to 0 just
+    before and read just after: B3 once a slice, B4 once, no other
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.plain import tree_attention_plain
+    tree = main_path_tree(np)[0]
+    lengths, pos = SEQ_SPLIT["lengths"], SEQ_SPLIT["pos"]
+    out = {}
+    for arch in SEQ_SPLIT["archs"]:
+        cfg = get_config(arch)
+        args = attention_inputs(torch, np, B=MAIN["batch"], W=MAIN["width"],
+                                Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                                hd=cfg.head_dim, S=sum(lengths), pos=pos,
+                                window=0, dtype="bfloat16", seed=23,
+                                tree=tree)
+        reset_counts()
+        got = dispatch.sequence_split_attention(*args, lengths)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts.update(paged_cache_attention=len(lengths),
+                           sparse_tree_attention_partial=1)
+        if counts != want_counts:
+            raise SmokeError(f"the sequence-split route at {arch} launched "
+                             f"{counts}, expected {want_counts}")
+        want = tree_attention_plain(*args)
+        tol = TOL[str(args[0].dtype)]
+        err = _hold(torch, "sequence_split_attention",
+                    f"{arch} slices {lengths}", got, want, tol)
+        log(f"sequence split {arch} verify W={MAIN['width']} B="
+            f"{MAIN['batch']} Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} "
+            f"hd={cfg.head_dim} slices {lengths} (pages "
+            f"{[dispatch._cache_pages(n) for n in lengths]}) bf16 ({card}): "
+            f"max abs err {err:.3e} against the plain whole-cache attention "
+            f"(tol {tol}); launches {counts}")
+        out[arch] = dict(max_abs_err=err, launches=counts)
+    return out
+
+
+def phase_custom_op_cost(torch, np, card):
+    """Phase 5: the host time of one call through a kernel's custom op
+    (``kernels/registered.py``, the dry run's route) against the direct
+    ctypes call (the route of real tensors), in alternating windows, at
+    the main path's verify W=8: B1 on the dense cache, B2 over the bf16
+    pool, B3 over the int8 pool, B4.  B3's and B4's custom ops copy their
+    three partials out of the one buffer the wrapper lays them in."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import tree_partial as tp
+    from repro_torch.kernels.verify_attention import verify_attention
+    dense = [attention_inputs(torch, np, seed=100 + r,
+                              **dict(main_shapes(np))["verify W=8"])
+             for r in range(4)]
+    paged = {}
+    for r in range(4):
+        for label, kw in paged_main_shapes(np, seed=r):
+            paged.setdefault(label, []).append(paged_inputs(torch, np,
+                                                            **kw))
+    bf16 = [paged_args(a) for a in paged["main bfloat16 pool verify W=8"]]
+    int8 = [paged_args(a, tree=False)
+            for a in paged["main int8 pool verify W=8"]]
+    tree = [(a["q"], a["k_new"], a["v_new"], a["tree_mask"])
+            for a in paged["main bfloat16 pool verify W=8"]]
+    ops = torch.ops.repro_torch
+    calls = {"verify_attention": (verify_attention, ops.verify_attention,
+                                  dense),
+             "paged_tree_attention": (pa.paged_tree_attention,
+                                      ops.paged_tree_attention, bf16),
+             "paged_cache_attention": (pa.paged_cache_attention,
+                                       ops.paged_cache_attention, int8),
+             "sparse_tree_attention_partial": (
+                 tp.sparse_tree_attention_partial, ops.tree_partial, tree)}
+    out = {}
+    for name, (direct, op, sets) in calls.items():
+        d_ms, op_ms = alternating_ms(torch, [
+            lambda i, f=direct, s=sets: f(*s[i % len(s)]),
+            lambda i, f=op, s=sets: f(*s[i % len(s)])])
+        out[name] = dict(direct_host_ms=d_ms, custom_op_host_ms=op_ms,
+                         added=op_ms / d_ms - 1)
+        log(f"custom op {name} verify W=8 ({card}): host ms a call "
+            f"{op_ms:.4f} through the custom op, {d_ms:.4f} direct "
+            f"(+{100 * (op_ms / d_ms - 1):.1f}%)")
+    del dense, paged
+    return out
+
+
 def kernel_entry(name, launches, max_err, row, card, **extra):
     """One entry of the ``{"kernels": [...]}`` line: ``ms`` is the kernel's
     device time (profiler), ``kernel_ms`` the time of a call (CUDA events
@@ -3814,6 +4061,10 @@ def main():
     drop_engines(torch)
     families = phase_families(torch, np, launches, card)
     log(f"phase 4d done at {time.perf_counter() - t_start:.1f}s")
+    dryruns = phase_dryrun(torch, card)
+    dtensor = phase_dtensor_step(torch, np, card)
+    dtensor["sequence_split"] = phase_sequence_split(torch, np, card)
+    log(f"phase 4f done at {time.perf_counter() - t_start:.1f}s")
     study = phase_sparse_study(torch, np, launches)
     timing = phase_timing(torch, np, card)
     paged = phase_paged_timing(torch, np, card)
@@ -3822,6 +4073,7 @@ def main():
     tree_rows = phase_tree_rows(torch, np, card)
     partial = phase_partial(torch, np, card)
     family_rows = phase_family_timing(torch, np, card)
+    custom_op = phase_custom_op_cost(torch, np, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
     def shapes(prefix):
@@ -3929,8 +4181,11 @@ def main():
                            if "tree_norm" in k},
                      fig10b=study),
     ]
+    log(f"custom op host ms a call: {json.dumps(custom_op)}")
     log(f"training: {json.dumps(training)}")
     log(f"families: {json.dumps(families, default=str)}")
+    log(f"dry run: {json.dumps(dryruns)}; dtensor step: "
+        f"{json.dumps(dtensor)}")
     steps = {label: r["stats"]["device_steps"] for label, r in served.items()}
     steps.update({label: (r["stats"].get("device_steps"),
                           r["stats"].get("extend_pieces"))

@@ -10,10 +10,12 @@ NVLink per direction):
 plus MODEL_FLOPS = 6 N D (train) or 2 N_active tokens (serve) and the
 useful-compute ratio MODEL_FLOPS / FLOPs.
 
-The port's dry-run tooling is not written yet: ``table()`` reads only the
-port's own directory (``results/torch/dryrun/``) and returns ``[]`` while
-it holds nothing; it never reads the reference's TPU records.
-``int8_kv_note`` needs no record: it is a shape computation.
+``table()`` reads the port's own records, which ``launch/dryrun.py``
+writes to ``results/torch/dryrun/`` (per device: ``flops``,
+``bytes_accessed`` and ``collectives`` counted on each rank's shards); it
+never reads the reference's TPU records.  The port runs every layer, so a
+record needs no scan correction.  ``int8_kv_note`` needs no record: it is
+a shape computation.
 """
 from __future__ import annotations
 
@@ -60,13 +62,8 @@ def analyse(rec) -> dict:
     if rec["status"] != "ok":
         return {"arch": rec["arch"], "shape": rec["shape"],
                 "status": rec["status"]}
-    corr = rec.get("corrected")
-    if corr:
-        flops, hbytes = corr["flops"], corr["hlo_bytes_accessed"]
-        cbytes = corr["collective_total"]
-    else:
-        flops, hbytes = rec["flops"], rec["hlo_bytes_accessed"]
-        cbytes = rec["collectives"]["total"]
+    flops, hbytes = rec["flops"], rec["bytes_accessed"]
+    cbytes = rec["collectives"]["total"]
     t_c = flops / H100_PEAK_BF16
     t_m = hbytes / H100_HBM
     t_x = cbytes / H100_NVLINK
@@ -124,8 +121,8 @@ def main():
     if rows:
         print(render_markdown(rows))
     else:
-        print(f"no dry-run records in {DRYRUN_DIR} (the port's dry-run "
-              f"tooling is not written yet)")
+        print(f"no dry-run records in {DRYRUN_DIR}: write them with "
+              f"python -m repro_torch.launch.dryrun --all")
     n = int8_kv_note()
     print(f"\nint8 KV pages ({n['arch']}, ps={n['page_size']}): "
           f"{n['kv_bytes_per_token_fp32']:.0f} -> "

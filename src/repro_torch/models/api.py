@@ -44,7 +44,8 @@ class Model:
 
 
 def _dense_like(cfg, family):
-    def prefill(params, batch, *, max_len=None, window=0, return_cache=True):
+    def prefill(params, batch, *, max_len=None, window=0, return_cache=True,
+                last_logits=False):
         tokens = batch["tokens"]
         embeds = None
         if cfg.frontend == "vision" and "patch_embeds" in batch:
@@ -53,7 +54,8 @@ def _dense_like(cfg, family):
                 [batch["patch_embeds"].to(tok_e.dtype), tok_e], dim=1)
         return transformer.prefill(cfg, params, tokens, embeds,
                                    max_len=max_len, window=window,
-                                   return_cache=return_cache)
+                                   return_cache=return_cache,
+                                   last_logits=last_logits)
 
     def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
         return transformer.verify(cfg, params, cache, tree_tokens,
@@ -75,9 +77,11 @@ def _dense_like(cfg, family):
 
 
 def _hybrid(cfg):
-    def prefill(params, batch, *, max_len=None, window=0, return_cache=True):
+    def prefill(params, batch, *, max_len=None, window=0, return_cache=True,
+                last_logits=False):
         return hybrid.prefill(cfg, params, batch["tokens"], max_len=max_len,
-                              window=window, return_cache=return_cache)
+                              window=window, return_cache=return_cache,
+                              last_logits=last_logits)
 
     def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
         del tree_kernel              # no split paged verify here
@@ -102,9 +106,11 @@ def _hybrid(cfg):
 
 
 def _xlstm(cfg):
-    def prefill(params, batch, *, max_len=None, window=0, return_cache=True):
+    def prefill(params, batch, *, max_len=None, window=0, return_cache=True,
+                last_logits=False):
         return xlstm_model.prefill(cfg, params, batch["tokens"],
-                                   return_cache=return_cache)
+                                   return_cache=return_cache,
+                                   last_logits=last_logits)
 
     def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
         del tree_kernel              # no KV: nothing to split
@@ -127,14 +133,16 @@ def _xlstm(cfg):
 
 
 def _encdec(cfg):
-    def prefill(params, batch, *, max_len=None, window=0, return_cache=True):
+    def prefill(params, batch, *, max_len=None, window=0, return_cache=True,
+                last_logits=False):
         dt = params["embed"].dtype
         frames, enc_out = batch.get("frame_embeds"), batch.get("enc_out")
         return encdec.prefill(
             cfg, params, batch["tokens"],
             frame_embeds=None if frames is None else frames.to(dt),
             enc_out=None if enc_out is None else enc_out.to(dt),
-            max_len=max_len, window=window, return_cache=return_cache)
+            max_len=max_len, window=window, return_cache=return_cache,
+            last_logits=last_logits)
 
     def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
         del tree_kernel              # the reference drops it: always fused

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hcmp.sharding import is_dtensor, regather
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 from repro_torch.runtime.cache import prefill_mask
@@ -54,6 +55,7 @@ def _qkv(cfg, p, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = regather(q), regather(k), regather(v)      # HCMP: into heads
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
@@ -80,18 +82,50 @@ def attn_prefill(cfg, p, x, *, window=0, causal=True):
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = _qkv(cfg, p, x, positions)
     scale = cfg.head_dim ** -0.5
-    if causal and S >= BLOCKED_PREFILL_THRESHOLD and S % PREFILL_BLOCK == 0:
-        o = _blocked_causal_attend(q, k, v, scale, window=window,
-                                   block=PREFILL_BLOCK)
-    else:
+
+    def attend(q, k, v):
+        if causal and S >= BLOCKED_PREFILL_THRESHOLD \
+                and S % PREFILL_BLOCK == 0:
+            return _blocked_causal_attend(q, k, v, scale, window=window,
+                                          block=PREFILL_BLOCK)
         if causal:
-            mask = prefill_mask(S, window, device=x.device)[None, None]
+            mask = prefill_mask(S, window, device=q.device)[None, None]
         else:
             mask = torch.ones((1, 1, S, S), dtype=torch.bool,
-                              device=x.device)
-        o = cm.gqa_attend(q, k, v, mask, scale)
-    out = o.reshape(B, S, -1) @ p["wo"]
+                              device=q.device)
+        return cm.gqa_attend(q, k, v, mask, scale)
+
+    o = _rowwise(attend, q, k, v)
+    out = regather(o.reshape(B, S, -1) @ p["wo"])
     return out, (k, v)
+
+
+# ``_rowwise`` passes its per-rank function through this hook when it is
+# set: the dry run's counters (``launch/comm_stats.py``) set it while they
+# count a step on fake tensors.
+ROWS_HOOK = None
+
+
+def _rowwise(fn, q, k, v):
+    """``fn(q, k, v)`` of attention whose queries and keys are all whole
+    on every rank but for the batch: on DTensors, ``fn`` of each rank's
+    rows (no communication).  The blocked loop runs thousands of small
+    ops a layer at 32k tokens, so DTensor's own dispatch is left out."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    if ROWS_HOOK is not None:
+        fn = ROWS_HOOK(fn)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    for t in (q, k, v):
+        if any(pl not in (Replicate(), Shard(0)) for pl in t.placements) \
+                or t.placements != q.placements:
+            raise ValueError(f"row-wise attention takes q, k, v split "
+                             f"alike over the batch only, got "
+                             f"{[t.placements for t in (q, k, v)]}")
+    return local_map(fn, out_placements=list(q.placements),
+                     in_placements=(q.placements,) * 3,
+                     device_mesh=q.device_mesh)(q, k, v)
 
 
 def _blocked_causal_attend(q, k, v, scale, *, window=0, block=1024):
@@ -131,15 +165,37 @@ def attn_cross(cfg, p, x, enc_k, enc_v):
     reference's ``gqa_attend``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+    q = regather(x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(cfg.num_heads, hd)
     if cfg.qk_norm:
         q = cm.rmsnorm(q, p["q_norm"], cfg.rmsnorm_eps)
-    mask = torch.ones((1, 1, S, enc_k.shape[1]), dtype=torch.bool,
-                      device=x.device)
-    o = cm.gqa_attend(q, enc_k, enc_v, mask, hd ** -0.5)
-    return o.reshape(B, S, -1) @ p["wo"]
+    o = _cross_attend(q, enc_k, enc_v, hd ** -0.5).reshape(B, S, -1)
+    return regather(regather(o, p["wo"]) @ p["wo"])
+
+
+def _cross_attend(q, k, v, scale):
+    """``gqa_attend`` with every key seen.  A cross memory split by kv
+    heads over a mesh dim (DTensors: the cache rules split it where 16
+    divides the heads) is read where it lies: each rank attends with the
+    query heads of its kv heads (query head h * G + g reads kv head h, so
+    a contiguous run of kv heads serves a contiguous run of query
+    heads)."""
+    def attend(q, k, v):
+        mask = torch.ones((1, 1, q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        return cm.gqa_attend(q, k, v, mask, scale)
+
+    if not is_dtensor(k):
+        return attend(q, k, v)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    heads = [pl == Shard(2) for pl in k.placements]
+    q_in = [Shard(2) if h else pl for h, pl in zip(heads, q.placements)]
+    return local_map(attend, out_placements=q_in,
+                     in_placements=(q_in, k.placements, v.placements),
+                     device_mesh=k.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def cross_kv_init(cfg, p, enc_out):
@@ -147,8 +203,8 @@ def cross_kv_init(cfg, p, enc_out):
     encoder's output (B, Senc, d): each (B, Senc, Hkv, hd), not rotated."""
     B, S, _ = enc_out.shape
     hd = cfg.head_dim
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    k = regather(enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = regather(enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
     if cfg.qkv_bias:
         k = k + p["bk"].reshape(cfg.num_kv_heads, hd)
         v = v + p["bv"].reshape(cfg.num_kv_heads, hd)
@@ -195,7 +251,7 @@ def attn_verify(cfg, p, x, *, ck, cv, key_pos, pos, tree_depth, tree_mask,
         o = dispatch.paged_tree_attention(
             q, ck, cv, k_new, v_new, block_table, key_pos, pos_b, tree_depth,
             tree_mask, scale_k=scale_k, scale_v=scale_v)
-    out = o.reshape(B, W, -1) @ p["wo"]
+    out = regather(o.reshape(B, W, -1) @ p["wo"])
     return out, (k_new, v_new)
 
 

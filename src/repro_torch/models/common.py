@@ -9,6 +9,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hcmp.sharding import (gather_fsdp, is_dtensor,
+                                            regather, shard_offset)
+
 NEG_INF = -1e30  # mask value (finite: avoids NaN from (-inf) - (-inf))
 
 
@@ -55,20 +58,31 @@ def stack_init(n, init_fn):
     return stacked
 
 
-def unstack_layers(stacked, n):
-    """The ``n`` per-layer dicts of a stacked param dict (views, no copy).
-    One ``unbind`` per leaf: under autograd its backward stacks the layers'
-    grads once, where indexing layer by layer builds a full-size grad of
-    the stack for every layer."""
-    per = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+def _unbind_layers(stacked, n):
+    per = {k: _unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0)
            for k, v in stacked.items()}
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
-def layer_slice(stacked, i):
-    """Layer ``i`` of a stacked param dict (views, no copy)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+def unstack_layers(stacked, n):
+    """The ``n`` per-layer dicts of a stacked param dict (views, no copy),
+    in order.  One ``unbind`` per leaf: under autograd its backward stacks
+    the layers' grads once, where indexing layer by layer builds a
+    full-size grad of the stack for every layer.  DTensor params split by
+    ``fsdp`` are gathered one layer at a time, as the loop reaches it
+    (``gather_fsdp``)."""
+    return (gather_fsdp(lp) for lp in _unbind_layers(stacked, n))
+
+
+def _slice(stacked, i):
+    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def layer_slice(stacked, i):
+    """Layer ``i`` of a stacked param dict (views, no copy; ``fsdp``
+    shards gathered)."""
+    return gather_fsdp(_slice(stacked, i))
 
 
 # --------------------------------------------------------------------------
@@ -178,4 +192,37 @@ def merge_partials(parts):
 
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    return regather(regather(h, w_down) @ w_down)
+
+
+def embed(table, tokens):
+    """Rows of ``table`` (V, d) for ``tokens``.  A vocab-sharded DTensor
+    table: each rank looks the tokens up in the rows it holds (zeros for
+    the others) and the ranks' partial sums meet at the consumer."""
+    if is_dtensor(table):
+        return regather(_sharded_embed(gather_fsdp(table), tokens))
+    return table[tokens.long()]
+
+
+def _sharded_embed(table, tokens):
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    vocab = [p == Shard(0) for p in table.placements]
+    off = shard_offset(table, 0)
+
+    def lookup(tab, tok):
+        idx = tok.long() - off
+        held = (idx >= 0) & (idx < tab.shape[0])
+        rows = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab)
+        return rows * held[..., None].to(rows.dtype)
+
+    out = [Partial() if v else p for v, p in zip(vocab, tokens.placements)]
+    return local_map(lookup, out_placements=out,
+                     in_placements=(table.placements, tokens.placements),
+                     device_mesh=table.device_mesh)(table, tokens)
+
+
+def logits(x, head, vocab):
+    """``x @ head`` cut to the real vocab; a vocab-sharded head's logits
+    are gathered first."""
+    return regather(x @ gather_fsdp(head))[..., :vocab]

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.hcmp import sharding as shd
 from repro_torch.models import common as cm
 from repro_torch.models.attention import (attn_cross, attn_init, attn_prefill,
                                           attn_verify, cross_kv_init)
@@ -53,8 +54,8 @@ def init_params(cfg, gen):
 
 
 def _logits(cfg, params, x):
-    return (cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps)
-            @ params["lm_head"])[..., :cfg.vocab_size]
+    return cm.logits(cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps),
+                     params["lm_head"], cfg.vocab_size)
 
 
 def _mlp(cfg, lp, x):
@@ -88,11 +89,11 @@ def cross_memory(cfg, params, enc_out):
 
 
 def prefill(cfg, params, tokens, *, enc_out=None, frame_embeds=None,
-            window=0, max_len=None, return_cache=True):
+            window=0, max_len=None, return_cache=True, last_logits=False):
     """Decoder prefill over the encoder memory of ``frame_embeds`` (or a
     given ``enc_out``).  Returns (logits (B,S,V), extras, Cache with the
     KV and the cross memory, or None)."""
-    x = params["embed"][tokens.long()]
+    x = cm.embed(params["embed"], tokens)
     B, S, _ = x.shape
     if enc_out is None:
         if frame_embeds is None:
@@ -112,12 +113,13 @@ def prefill(cfg, params, tokens, *, enc_out=None, frame_embeds=None,
             vs.append(v)
     extras = {"aux_loss": torch.zeros((), dtype=torch.float32,
                                       device=x.device), "hidden": x}
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x[:, -1:] if last_logits else x)
     if not return_cache:
         return logits, extras, None
     kv = init_kv_cache(cfg.num_layers, B, max(S, max_len or 0),
                        cfg.num_kv_heads, cfg.head_dim, window=window,
-                       dtype=getattr(torch, cfg.dtype), device=x.device)
+                       dtype=getattr(torch, cfg.dtype), device=x.device,
+                       mesh=shd.mesh_of(x))
     kv = bulk_write(kv, torch.stack(ks), torch.stack(vs), start=0)
     return logits, extras, Cache(kv=kv, cross_k=cross_k, cross_v=cross_v)
 
@@ -128,7 +130,7 @@ def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask):
     and an int8 pool its scales), then the cross-attention over the cached
     memory.  Returns (logits (B,W,V), extras) with ``tree_kv`` (each
     (L,B,W,Hkv,hd), not committed) and ``hidden``."""
-    x = params["embed"][tree_tokens.long()]
+    x = cm.embed(params["embed"], tree_tokens)
     kv = cache.kv
     paged = isinstance(kv, PagedKVCache)
     k_new, v_new = [], []

@@ -17,13 +17,15 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.hcmp import sharding as shd
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import recurrent_verify as rv
 from repro_torch.models.attention import attn_init, attn_prefill, attn_verify
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.runtime.cache import (Cache, KVCache, MambaState,
-                                      PagedKVCache, init_kv_cache, kv_commit)
+                                      PagedKVCache, bulk_write, init_kv_cache,
+                                      kv_commit)
 
 
 def n_sites(cfg):
@@ -60,8 +62,8 @@ def init_params(cfg, gen):
 
 
 def _logits(cfg, params, x):
-    return (cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps)
-            @ params["lm_head"])[..., :cfg.vocab_size]
+    return cm.logits(cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps),
+                     params["lm_head"], cfg.vocab_size)
 
 
 def _shared_mlp(cfg, sp, x):
@@ -71,23 +73,26 @@ def _shared_mlp(cfg, sp, x):
 
 # --------------------------------------------------------------------------
 def prefill(cfg, params, tokens, *, window=0, max_len=None,
-            return_cache=True):
+            return_cache=True, last_logits=False):
     """Returns (logits (B,S,V), extras, Cache).  ``return_cache=False``
     (training) skips all cache work; the reference writes into a 1-slot
     dummy cache there, which no output reads."""
-    x = params["embed"][tokens.long()]
+    x = cm.embed(params["embed"], tokens)
     B, S, _ = x.shape
     sp = params["shared"]
     kv = init_kv_cache(n_sites(cfg), B, max(S, max_len or 0),
                        cfg.num_kv_heads, cfg.head_dim, window=window,
-                       dtype=x.dtype, device=x.device) \
-        if return_cache else None
+                       dtype=x.dtype, device=x.device,
+                       mesh=shd.mesh_of(x)) if return_cache else None
+    # a sequence-sharded cache (DTensors) is written once, after the
+    # stack, through bulk_write's sharded write
+    sharded = kv is not None and shd.is_dtensor(kv.k)
     if kv is not None:
         size = kv.max_len
         lo = max(S - size, 0)     # a prompt past the ring keeps its tail
         abs_pos = torch.arange(lo, S, dtype=torch.int32, device=x.device)
         slots = abs_pos.remainder(size).long()
-    ssm, conv = [], []
+    ssm, conv, site_k, site_v = [], [], [], []
     for i, lp in enumerate(cm.unstack_layers(params["layers"],
                                              cfg.num_layers)):
         out, st = mb.mamba_prefill(cfg, lp["mamba"],
@@ -101,14 +106,22 @@ def prefill(cfg, params, tokens, *, window=0, max_len=None,
         h = cm.rmsnorm(x, sp["ln1"], cfg.rmsnorm_eps)
         a, (k1, v1) = attn_prefill(cfg, sp["attn"], h, window=window)
         x = _shared_mlp(cfg, sp, x + a)
-        if kv is not None:
+        if sharded:
+            site_k.append(k1[:, lo:])
+            site_v.append(v1[:, lo:])
+        elif kv is not None:
             kv.k[g][:, slots] = k1[:, lo:]
             kv.v[g][:, slots] = v1[:, lo:]
     extras = {"aux_loss": torch.zeros((), dtype=torch.float32,
                                       device=x.device), "hidden": x}
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x[:, -1:] if last_logits else x)
     if kv is None:
         return logits, extras, None
+    if sharded:
+        kv = bulk_write(kv, torch.stack(site_k), torch.stack(site_v),
+                        start=lo)
+        return logits, extras, Cache(kv=kv, mamba=MambaState(
+            ssm=torch.stack(ssm), conv=torch.stack(conv), pos=kv.pos))
     key_pos = kv.key_pos.clone()
     key_pos[:, slots] = abs_pos                  # the same row per sequence
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -129,7 +142,7 @@ def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask,
     (L, D, B*P, ...), the states after each depth, allocated once a
     verify), ``tree_k``/``tree_v`` (n_sites, B, W, Hkv, hd), ``P`` and
     ``hidden``."""
-    x = params["embed"][tree_tokens.long()]
+    x = cm.embed(params["embed"], tree_tokens)
     B, W, _ = x.shape
     P, D = paths.shape
     kv, ms = cache.kv, cache.mamba
@@ -137,8 +150,8 @@ def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask,
     L = cfg.num_layers
     paged = isinstance(kv, PagedKVCache)
     depth_states = {
-        f: torch.empty((L, D, B * P) + tuple(t.shape[2:]), dtype=t.dtype,
-                       device=t.device)
+        f: shd.empty((L, D, B * P) + tuple(t.shape[2:]), t,
+                     (0,) + tuple(range(2, t.dim() + 1)))
         for f, t in (("ssm", ms.ssm), ("conv", ms.conv))}
     site_k, site_v = [], []
     for i in range(L):
@@ -209,13 +222,17 @@ def commit(cfg, cache: Cache, extras, accept_nodes, n_accept, path_idx,
     kv, ms = cache.kv, cache.mamba
     B = kv.pos.shape[0]
     P = extras["P"]
-    rows = torch.arange(B, device=n_accept.device)
     keep = n_accept > 0
 
-    def sel(s, prev):                          # (L, D, B*P, ...) -> (L, B, ...)
-        sbp = s.reshape(tuple(s.shape[:2]) + (B, P) + tuple(s.shape[3:]))
-        new = sbp[:, rv.committed_index(n_accept, s.shape[1]), rows,
-                  path_idx.long()]
+    def pick(s, n_accept, path_idx):          # (L, D, B*P, ...) -> (L, B, ...)
+        b = n_accept.shape[0]                 # on DTensors: this rank's rows
+        sbp = s.reshape(tuple(s.shape[:2]) + (b, P) + tuple(s.shape[3:]))
+        return sbp[:, rv.committed_index(n_accept, s.shape[1]),
+                   torch.arange(b, device=n_accept.device), path_idx.long()]
+
+    def sel(s, prev):
+        new = shd.per_row(pick, s, n_accept, path_idx, batch_dim=2,
+                          out_batch_dim=1)
         k = keep.reshape((1, B) + (1,) * (prev.dim() - 2))
         return torch.where(k, new, prev)
 

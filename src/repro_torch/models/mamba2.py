@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hcmp.sharding import regather
 from repro_torch.models import common as cm
 
 
@@ -100,7 +101,14 @@ def mamba_step(cfg, p, x_t, state, out=None):
                        out=None if out is None else out["ssm"])
     y = cm.rmsnorm((y * F.silu(z.float())).to(x_t.dtype), p["norm"],
                    cfg.rmsnorm_eps)
-    return y @ p["out_proj"], {"ssm": ssm, "conv": hist[:, 1:, :]}
+    return _out_proj(p, y), {"ssm": ssm, "conv": hist[:, 1:, :]}
+
+
+def _out_proj(p, y):
+    """``y @ out_proj``; on DTensors the HCMP re-gathers around it (the
+    z/x path and the SSD stay split over ``model`` until here)."""
+    w = p["out_proj"]
+    return regather(regather(y, w) @ w)
 
 
 def _ssd_chunk(cfg, p, x_c, bc_c, dt_raw, S0):
@@ -167,7 +175,7 @@ def _finish(cfg, p, x, z, y, hist):
     y = cm.rmsnorm((y * F.silu(z.float())).to(x.dtype), p["norm"],
                    cfg.rmsnorm_eps)
     conv = hist[:, -(K - 1):, :] if K > 1 else hist[:, :0, :]
-    return y @ p["out_proj"], conv
+    return _out_proj(p, y), conv
 
 
 def mamba_prefill(cfg, p, x, state=None, chunk=256):

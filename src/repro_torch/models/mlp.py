@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hcmp.sharding import is_dtensor, regather
 from repro_torch.models import common as cm
 
 
@@ -64,13 +65,56 @@ def moe_groups(cfg, T, *, capacity_factor=1.25, group_size=256):
     return g, T // g, cap
 
 
+def _whole_groups(x, G):
+    """``x`` (B, S, d) laid out so that its (G, g) token groups are whole
+    on every rank: a DTensor whose batch split does not cut the G groups
+    evenly (a W=16 verify at batch 128 makes 8 groups of 256 over 16
+    batch shards) is gathered over the batch first, and every rank of
+    that split then routes all the groups."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(x) or G == 1:
+        return x
+    split = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    n = 1
+    for i in split:
+        n *= x.device_mesh.size(i)
+    if G % n == 0:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if i in split else p for i, p in enumerate(x.placements)])
+
+
+def _combine(comb, ye):
+    """``einsum("gsec,gecd->gsd", comb, ye)``: each token's weighted sum
+    of its experts' outputs.  With the experts split over a mesh dim
+    (DTensors: expert parallelism), each rank sums the experts it holds
+    and the ranks' partial sums are added at the consumer: DTensor's own
+    einsum would merge the split expert dim with the capacity dim, a
+    strided split its rules cannot take."""
+    if not is_dtensor(ye):
+        return torch.einsum("gsec,gecd->gsd", comb, ye)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    experts = [p == Shard(1) for p in ye.placements]
+    comb_in = [Shard(2) if e else p for e, p in zip(experts, comb.placements)]
+    # a split of the groups (g) splits ye's groups alike; a split of the
+    # tokens within a group needs every expert output of the group
+    ye_in = [Shard(1) if e else Shard(0) if p == Shard(0) else Replicate()
+             for e, p in zip(experts, comb.placements)]
+    out = [Partial() if e else p for e, p in zip(experts, comb.placements)]
+    return local_map(
+        lambda c, y: torch.einsum("gsec,gecd->gsd", c, y),
+        out_placements=out, in_placements=(comb_in, ye_in),
+        device_mesh=ye.device_mesh, redistribute_inputs=True)(comb, ye)
+
+
 def moe_apply(cfg, p, x, *, capacity_factor=1.25, group_size=256):
     """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d float32)."""
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     g, G, cap = moe_groups(cfg, B * S, capacity_factor=capacity_factor,
                            group_size=group_size)
-    xg = x.reshape(G, g, d)
+    xg = _whole_groups(x, G).reshape(G, g, d)
 
     logits = xg.float() @ p["router"].float()                 # (G, g, E)
     probs = torch.softmax(logits, dim=-1)
@@ -97,7 +141,7 @@ def moe_apply(cfg, p, x, *, capacity_factor=1.25, group_size=256):
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])       # (G, E, cap, d)
-    out = torch.einsum("gsec,gecd->gsd", comb, ye).reshape(B, S, d)
+    out = regather(_combine(comb, ye).reshape(B, S, d))
 
     # load-balance auxiliary loss (Switch-style)
     frac_tokens = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))

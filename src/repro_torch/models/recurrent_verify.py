@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hcmp.sharding import empty, per_row
+
 
 def expand_paths(x_nodes, paths):
     """x_nodes: (B, W, d); paths: (P, D) node ids -> (D, B, P, d)."""
@@ -48,8 +50,8 @@ def path_verify(step_fn, x_nodes, state, paths, node_path, node_depth,
     xs = expand_paths(x_nodes, paths).reshape(D, B * P, d)
     st = replicate_state(state, P)
     if out is None:
-        out = {k: torch.empty((D,) + tuple(v.shape), dtype=v.dtype,
-                              device=v.device) for k, v in st.items()}
+        out = {k: empty((D,) + tuple(v.shape), v, range(1, v.dim() + 1))
+               for k, v in st.items()}
     ys = []
     for t in range(D):
         slot = {k: v[t] for k, v in out.items()}
@@ -78,9 +80,11 @@ def select_committed_state(per_depth_states, path_idx, n_accept, batch, P):
     (D, B*P, ...); path_idx/n_accept: (B,).  Returns leaves (B, ...)."""
     rows = torch.arange(batch, device=path_idx.device)
 
-    def sel(s):
-        sbp = s.reshape((s.shape[0], batch, P) + tuple(s.shape[2:]))
-        return sbp[committed_index(n_accept, s.shape[0]), rows,
-                   path_idx.long()]
+    def sel(s, path_idx, n_accept):
+        b = path_idx.shape[0]                 # on DTensors: this rank's rows
+        sbp = s.reshape((s.shape[0], b, P) + tuple(s.shape[2:]))
+        return sbp[committed_index(n_accept, s.shape[0]),
+                   rows if b == batch else rows[:b], path_idx.long()]
 
-    return {k: sel(v) for k, v in per_depth_states.items()}
+    return {k: per_row(sel, v, path_idx, n_accept, batch_dim=1)
+            for k, v in per_depth_states.items()}

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.hcmp import sharding as shd
 from repro_torch.models import common as cm
 from repro_torch.models.attention import attn_init, attn_prefill, attn_verify
 from repro_torch.models.mlp import mlp_apply, mlp_init, moe_apply, moe_init
@@ -64,16 +65,16 @@ def _mix(cfg, lp, h):
 def _logits(cfg, params, x):
     x = cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head)[..., :cfg.vocab_size]
+    return cm.logits(x, head, cfg.vocab_size)
 
 
 def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+    return cm.embed(params["embed"], tokens)
 
 
 # --------------------------------------------------------------------------
 def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
-            return_cache=True):
+            return_cache=True, last_logits=False):
     """Returns (logits (B,S,V), extras, Cache).  ``embeds`` (B,S,d)
     replaces the token embedding (the VLM path: patch embeds, then the
     token embeds).  ``max_len`` sets the cache capacity (>= S + expected
@@ -96,7 +97,7 @@ def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
         if return_cache:
             ks.append(k)
             vs.append(v)
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x[:, -1:] if last_logits else x)
     aux_loss = torch.stack(auxs).sum() if auxs else torch.zeros(
         (), dtype=torch.float32, device=x.device)
     extras = {"aux_loss": aux_loss, "hidden": x}
@@ -104,7 +105,8 @@ def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
         return logits, extras, None
     kv = init_kv_cache(cfg.num_layers, B, max(S, max_len or 0),
                        cfg.num_kv_heads, cfg.head_dim, window=window,
-                       dtype=getattr(torch, cfg.dtype), device=x.device)
+                       dtype=getattr(torch, cfg.dtype), device=x.device,
+                       mesh=shd.mesh_of(x))
     kv = bulk_write(kv, torch.stack(ks), torch.stack(vs), start=0)
     return logits, extras, Cache(kv=kv)
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hcmp.sharding import elementwise
 from repro_torch.models import common as cm
 
 NEG_M = -1e30          # the stabilizer's initial value
@@ -50,7 +51,7 @@ def mlstm_init(cfg, gen):
 def _mlstm_gates(p, xi):
     i_raw = xi.float() @ p["wi"]                            # (..., nh)
     f_raw = xi.float() @ p["wf"]
-    return i_raw, F.logsigmoid(f_raw)
+    return i_raw, elementwise(F.logsigmoid, f_raw)
 
 
 def _mlstm_qkv(cfg, p, xi):
@@ -207,7 +208,7 @@ def slstm_step(cfg, p, x_t, state):
         return (x_t @ p["w" + g] + h_prev @ p["r" + g]).float() + p["b" + g]
 
     i_raw, f_raw, z_raw, o_raw = gate("i"), gate("f"), gate("z"), gate("o")
-    f_log = F.logsigmoid(f_raw)
+    f_log = elementwise(F.logsigmoid, f_raw)
     m_new = torch.maximum(f_log + state["m"], i_raw)
     i_g = torch.exp(i_raw - m_new)
     f_g = torch.exp(f_log + state["m"] - m_new)

@@ -41,8 +41,8 @@ def init_params(cfg, gen):
 
 
 def _logits(cfg, params, x):
-    return (cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps)
-            @ params["lm_head"])[..., :cfg.vocab_size]
+    return cm.logits(cm.rmsnorm(x, params["ln_f"], cfg.rmsnorm_eps),
+                     params["lm_head"], cfg.vocab_size)
 
 
 def init_cache(cfg, batch, max_len=0, *, window=0, device="cuda") -> Cache:
@@ -55,9 +55,9 @@ def init_cache(cfg, batch, max_len=0, *, window=0, device="cuda") -> Cache:
                                     device=device)))
 
 
-def prefill(cfg, params, tokens, *, return_cache=True):
+def prefill(cfg, params, tokens, *, return_cache=True, last_logits=False):
     """Returns (logits (B,S,V), extras, Cache or None)."""
-    x = params["embed"][tokens.long()]
+    x = cm.embed(params["embed"], tokens)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, device=x.device)
     states = []
@@ -70,9 +70,10 @@ def prefill(cfg, params, tokens, *, return_cache=True):
         states.append(st)
     extras = {"aux_loss": torch.zeros((), dtype=torch.float32,
                                       device=x.device), "hidden": x}
+    x_out = x[:, -1:] if last_logits else x
     if not return_cache:
-        return _logits(cfg, params, x), extras, None
-    return _logits(cfg, params, x), extras, Cache(xlstm=XLSTMState(
+        return _logits(cfg, params, x_out), extras, None
+    return _logits(cfg, params, x_out), extras, Cache(xlstm=XLSTMState(
         layers=tuple(states), pos=(cache.xlstm.pos + S).to(torch.int32)))
 
 
@@ -82,7 +83,7 @@ def verify(cfg, params, cache: Cache, tree_tokens, *, paths, node_path,
     Returns (logits (B,W,V), extras for ``commit``): ``depth_states`` (per
     layer, each leaf (D, B*P, ...): the states after each depth), ``P``,
     ``B`` and ``hidden``."""
-    x = params["embed"][tree_tokens.long()]
+    x = cm.embed(params["embed"], tree_tokens)
     B = x.shape[0]
     P = paths.shape[0]
     depth_states = []

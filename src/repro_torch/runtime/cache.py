@@ -55,6 +55,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.hcmp import sharding as shd
+
 
 @dataclasses.dataclass
 class KVCache:
@@ -137,15 +139,23 @@ class Cache:
 
 # --------------------------------------------------------------------------
 def init_kv_cache(n_layers, batch, max_len, n_kv, head_dim, *, window=0,
-                  dtype=torch.bfloat16, device="cuda") -> KVCache:
+                  dtype=torch.bfloat16, device="cuda", mesh=None) -> KVCache:
+    """An empty dense cache; on a ``mesh`` its fields are DTensors laid out
+    by the cache rules (``core/hcmp/sharding.py``: batch on the data axes,
+    the sequence on ``model``), each rank allocating its own slice."""
     size = min(max_len, window) if window else max_len
     shape = (n_layers, batch, size, n_kv, head_dim)
+
+    def full(name, shape, fill, dt):
+        if mesh is not None:
+            return shd.full(mesh, ("kv", name), shape, fill, dt)
+        return torch.full(shape, fill, dtype=dt, device=device)
+
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        key_pos=torch.full((batch, size), -1, dtype=torch.int32,
-                           device=device),
-        pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k=full("k", shape, 0, dtype),
+        v=full("v", shape, 0, dtype),
+        key_pos=full("key_pos", (batch, size), -1, torch.int32),
+        pos=full("pos", (batch,), 0, torch.int32),
         window=window,
     )
 
@@ -695,17 +705,20 @@ def write_row_at(cache: Cache, row: int, ks, vs, start, n_valid) -> Cache:
 
 
 # --------------------------------------------------------------------------
-def _ring_match(abs_pos, valid, size):
+def _ring_match(abs_pos, valid, size, ar=None):
     """Per-slot source index for a masked ring write, batched over rows.
 
     abs_pos: (B, D) absolute positions being written; valid: (B, D) write
-    mask.  Returns (written (B, S), src (B, S)): slot s of row b takes entry
-    src[b, s] iff written[b, s].  Duplicate slots (a write run longer than
-    the ring) resolve to the LAST write, as in the reference.
+    mask.  Returns (written (B, n), src (B, n)) over the n ring slots
+    ``ar`` (all ``size`` of them by default; a rank's sequence shard
+    otherwise): slot ar[s] of row b takes entry src[b, s] iff
+    written[b, s].  Duplicate slots (a write run longer than the ring)
+    resolve to the LAST write, as in the reference.
     """
     D = abs_pos.shape[1]
     slots = abs_pos.remainder(size)
-    ar = torch.arange(size, device=abs_pos.device)
+    if ar is None:
+        ar = torch.arange(size, device=abs_pos.device)
     match = (ar[None, :, None] == slots[:, None, :]) & valid[:, None, :]
     written = match.any(dim=2)
     src = (D - 1) - torch.argmax(match.flip(2).to(torch.int32), dim=2)
@@ -721,7 +734,12 @@ def _ring_write(kv, sel_k, sel_v, abs_pos, valid):
     depends on the order of a scatter: each of the D touched slots receives
     the value the map assigns to that SLOT (its last valid writer, or its
     current content), and entries that share a slot carry identical values.
+    A sequence-sharded cache (DTensors) writes each rank's slice on that
+    rank (``_sharded_write``).
     """
+    if shd.is_dtensor(kv.k):
+        return _sharded_write(_ring_write_slice, kv, sel_k, sel_v, abs_pos,
+                              valid)
     size = kv.max_len
     written, src = _ring_match(abs_pos, valid, size)          # (B, S)
     slots = abs_pos.remainder(size).long()                    # (B, D)
@@ -734,6 +752,68 @@ def _ring_write(kv, sel_k, sel_v, abs_pos, valid):
         cur[:, rows, slots] = torch.where(m, picked, cur[:, rows, slots])
     kp_src = abs_pos.gather(1, src.long()).to(torch.int32)
     return torch.where(written, kp_src, kv.key_pos)
+
+
+def _ring_write_slice(k, v, key_pos, sel_k, sel_v, abs_pos, valid, *, size,
+                      off):
+    """``_ring_write`` on the ring slots [off, off + n) that one rank's
+    ``k``, ``v`` (L, B, n, Hkv, hd) and ``key_pos`` (B, n) hold.  An entry
+    bound for a slot outside them is pointed at the nearest slot inside
+    and carries that slot's value, so it changes nothing."""
+    n = k.shape[2]
+    written, src = _ring_match(                               # (B, n)
+        abs_pos, valid, size, off + torch.arange(n, device=k.device))
+    local = (abs_pos.remainder(size) - off).clamp(0, n - 1).long()  # (B, D)
+    w_at = written.gather(1, local)                           # (B, D)
+    src_at = src.gather(1, local)                             # (B, D)
+    rows = torch.arange(local.shape[0], device=local.device)[:, None]
+    m = w_at[None, :, :, None, None]
+    for cur, sel in ((k, sel_k), (v, sel_v)):
+        picked = sel[:, rows, src_at].to(cur.dtype)           # (L, B, D, ...)
+        cur[:, rows, local] = torch.where(m, picked, cur[:, rows, local])
+    kp_src = abs_pos.gather(1, src.long()).to(torch.int32)
+    return torch.where(written, kp_src, key_pos)
+
+
+def _sharded_write(write, kv, *entries, **kw):
+    """Run ``write(k, v, key_pos, *entries, size=, off=, **kw)`` on each
+    rank's slice of a sequence-sharded cache: the entries ((L, B, D, ...)
+    KVs or (B, D) positions and masks; plain ones are alike on every rank)
+    reach every rank split over the batch as the cache is and whole along
+    the sequence, and each rank writes the slots it holds.  Returns
+    key_pos."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = kv.k.device_mesh
+    off = shd.shard_offset(kv.k, dim=2)
+    rows = [p == Shard(0) for p in kv.key_pos.placements]
+    entries = tuple(shd.replicated(t, mesh) for t in entries)
+    want = tuple([Shard(0 if t.dim() == 2 else 1) if r else Replicate()
+                  for r in rows] for t in entries)
+
+    def on_slice(k, v, key_pos, *entries):
+        return write(k, v, key_pos, *entries, size=kv.max_len, off=off, **kw)
+
+    cache = (kv.k, kv.v, kv.key_pos)
+    return local_map(on_slice, out_placements=list(kv.key_pos.placements),
+                     in_placements=tuple(t.placements for t in cache) + want,
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *cache, *entries)
+
+
+def _run_write_slice(k, v, key_pos, ks, vs, *, size, off, first):
+    """Prefill's contiguous write of S <= size entries at positions
+    [first, first + S) (every row alike) into the ring slots [off, off +
+    n) this slice holds: each slot takes the entry whose position lands
+    on it, or keeps its content."""
+    n, S = k.shape[2], ks.shape[2]
+    idx = (off + torch.arange(n, device=k.device) - first).remainder(size)
+    hit = idx < S                                             # (n,)
+    idx = idx.clamp(max=S - 1)
+    for cur, src in ((k, ks), (v, vs)):
+        cur.copy_(torch.where(hit[None, None, :, None, None],
+                              src.index_select(2, idx).to(cur.dtype), cur))
+    return torch.where(hit[None, :], (first + idx).to(torch.int32), key_pos)
 
 
 def bulk_write(kv: KVCache, ks, vs, start) -> KVCache:
@@ -755,6 +835,13 @@ def bulk_write(kv: KVCache, ks, vs, start) -> KVCache:
         off, S = S - size, size
     dev = kv.key_pos.device
 
+    if isinstance(start, int) and shd.is_dtensor(kv.k):
+        key_pos = _sharded_write(_run_write_slice, kv, ks, vs,
+                                 first=start + off)
+        return KVCache(k=kv.k, v=kv.v, key_pos=key_pos,
+                       pos=shd.full(kv.k.device_mesh, ("kv", "pos"), (B,),
+                                    start + off + S, torch.int32),
+                       window=kv.window)
     if isinstance(start, int):
         # uniform positions: one contiguous ring write shared by the whole
         # batch; the S slots are distinct because S <= size here
@@ -771,7 +858,7 @@ def bulk_write(kv: KVCache, ks, vs, start) -> KVCache:
 
     abs_pos = (start[:, None] + off
                + torch.arange(S, dtype=torch.int32, device=dev)[None, :])
-    valid = torch.ones(abs_pos.shape, dtype=torch.bool, device=dev)
+    valid = torch.ones_like(abs_pos, dtype=torch.bool)
     key_pos = _ring_write(kv, ks, vs, abs_pos, valid)
     return KVCache(k=kv.k, v=kv.v, key_pos=key_pos,
                    pos=(start + off + S).to(torch.int32), window=kv.window)
@@ -795,10 +882,15 @@ def kv_commit(kv: KVCache, k_new, v_new, accept_nodes, n_accept,
     idx = torch.arange(max_depth, dtype=torch.int32, device=dev)
     abs_pos = kv.pos[:, None] + idx[None, :]                  # (B, Dmax)
     valid = idx[None, :] < n_accept[:, None]
-    rows = torch.arange(k_new.shape[1], device=dev)[:, None]
-    nodes = accept_nodes.long()
-    key_pos = _ring_write(kv, k_new[:, rows, nodes], v_new[:, rows, nodes],
-                          abs_pos, valid)
+
+    def path(t, nodes):                       # (L, B, W, ...) -> (L, B, D, ...)
+        rows = torch.arange(nodes.shape[0], device=nodes.device)[:, None]
+        return t[:, rows, nodes.long()]
+
+    key_pos = _ring_write(
+        kv, *(shd.per_row(path, t, accept_nodes, batch_dim=1,
+                          out_batch_dim=1) for t in (k_new, v_new)),
+        abs_pos, valid)
     return KVCache(k=kv.k, v=kv.v, key_pos=key_pos,
                    pos=(kv.pos + n_accept).to(torch.int32), window=kv.window)
 

@@ -30,7 +30,7 @@ class AdamWState:
 
 def adamw_init(params) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(mu=tree_map(zeros, params),
                       nu=tree_map(zeros, params), step=0)
 

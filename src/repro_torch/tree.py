@@ -9,6 +9,10 @@ its leaves by, and ``treedef_str`` prints JAX's ``str(treedef)``.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 
 def leaves(tree) -> list:
     """The leaves in the tree's own order."""
@@ -74,3 +78,26 @@ def rebuild(like, by_path):
             return tuple(go(v, prefix + (i,)) for i, v in enumerate(t))
         return by_path[prefix]
     return go(like, ())
+
+
+def named_map(fn, tree, names=()):
+    """``fn(names, leaf)`` over every tensor of a tree of dicts, tuples and
+    dataclasses (the caches), rebuilt in the same structure.  ``names`` are
+    the dict keys and dataclass field names on the way to the leaf (tuple
+    indices are not names), as the reference's ``_names`` reads a JAX key
+    path; a field that holds no tensor (``None``, a window, a page size)
+    stays as it is."""
+    if isinstance(tree, dict):
+        return {k: named_map(fn, v, names + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(named_map(fn, v, names) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: named_map(fn, getattr(tree, f.name), names + (f.name,))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name),
+                          (dict, tuple, torch.Tensor))
+            or dataclasses.is_dataclass(getattr(tree, f.name))})
+    if isinstance(tree, torch.Tensor):
+        return fn(names, tree)
+    return tree

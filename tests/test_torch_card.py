@@ -602,3 +602,41 @@ def test_fig10b_study_and_int8_arm_on_card(capsys):
     assert rows["int8_split_err_vs_fp32"] < sparse.INT8_BOUND
     assert rows["int8_cache_bytes_reduction"] > 3.9
     assert "NVIDIA" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_dtensor_step_launches_b1_on_card():
+    """Phase 4f (b): ``qwen2-0.5b`` in bf16 through DTensor on a one-rank
+    NCCL group's (1, 1) mesh, prefill, W=8 verify and two decodes within
+    bf16 2e-2 of the plain steps, B1 once per layer a forward and no other
+    kernel; and the dry run's custom ops on fake CUDA tensors launch
+    nothing."""
+    _need_gpu()
+    out = chip_smoke.phase_dtensor_step(torch, np, "card")
+    assert out["launches"]["verify_attention"] == 3 * 24
+    assert max(out["diffs"].values()) <= 2e-2
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import dispatch
+    args = chip_smoke.attention_inputs(torch, np, 1, 4, 4, 2, 32, 24, 20, 0,
+                                       "bfloat16", seed=0)
+    n = verify_attention.launches
+    with FakeTensorMode() as fake:
+        fa = [fake.from_tensor(t) for t in args]
+        out = dispatch._call(verify_attention,
+                             torch.ops.repro_torch.verify_attention, *fa)
+    assert out.shape == args[0].shape and out.device.type == "cuda"
+    assert verify_attention.launches == n
+
+
+@pytest.mark.gpu
+def test_sequence_split_route_on_card():
+    """Phase 4f (c): the sequence-split route's B3 over cache slices read
+    as pages of 8/4/2/1 slots, B4 and the Eq.-1 merge within bf16 2e-2 of
+    the plain whole-cache attention, B3 once a slice and B4 once."""
+    _need_gpu()
+    out = chip_smoke.phase_sequence_split(torch, np, "card")
+    n = len(chip_smoke.SEQ_SPLIT["lengths"])
+    for r in out.values():
+        assert r["max_abs_err"] <= 2e-2
+        assert r["launches"]["paged_cache_attention"] == n
+        assert r["launches"]["sparse_tree_attention_partial"] == 1

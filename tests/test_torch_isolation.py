@@ -156,6 +156,27 @@ def test_bench_module_imports_alone_with_jax_blocked(module):
     _imports_alone(module, also_blocked=("benchmarks", "examples"))
 
 
+# the multi-device dry run: placements, meshes, cases, counters, the
+# kernels' custom ops, the dry run and the steps across ranks
+DRYRUN_MODULES = ["repro_torch.core.hcmp.sharding",
+                  "repro_torch.launch.mesh",
+                  "repro_torch.launch.cases",
+                  "repro_torch.launch.comm_stats",
+                  "repro_torch.launch.dryrun",
+                  "repro_torch.launch.sharded_check",
+                  "repro_torch.kernels.registered"]
+
+
+@pytest.mark.parametrize("module", DRYRUN_MODULES)
+def test_dryrun_module_imports_alone_with_jax_blocked(module):
+    """The same for the dry run's modules: none imports
+    ``repro.launch`` or ``repro.core.hcmp.sharding``, and importing one
+    starts no process group (the fake one is a mesh function's, at its
+    call)."""
+    _imports_alone(module, extra="import torch.distributed as dist\n"
+                                  "assert not dist.is_initialized()\n")
+
+
 def test_no_port_module_imports_the_reference_scripts():
     """No module of the port imports the top-level ``benchmarks`` or
     ``examples`` packages (the reference's harness and examples)."""
@@ -173,7 +194,7 @@ def test_no_port_module_imports_the_reference_scripts():
     assert hits == [], hits
 
 
-def _imports_alone(module, also_blocked=()):
+def _imports_alone(module, also_blocked=(), extra=""):
     assert module in _modules()
     code = (
         "import sys, importlib\n"
@@ -188,7 +209,7 @@ def _imports_alone(module, also_blocked=()):
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "bad = sorted(k for k, v in sys.modules.items() if v is not None\n"
         "             and k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n" + extra)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
