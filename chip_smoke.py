@@ -64,8 +64,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    its graphs (captured, steps replayed, capture seconds, pool bytes).
    Time ``DecodeEngine.time_step`` for dense ghidorah and sequential at
    B=4 on both paths, and profile each fixed-batch run and (e) on both
-   paths (``launch/profile_serve.py``: idle share, device time by class;
-   the profiler must see the replays' kernels).
+   paths at PROFILE_TOKENS (32) tokens a row (``launch/profile_serve.py``:
+   idle share, device time by class; the profiler must see the replays'
+   kernels).
 4b. ARCA and HCMP, on the same weights: (a) the analytic ``--width 0``
    choice (the paper's Jetson model) and its table; (b) measured ARCA,
    ``arca.profile_engine`` on the paged int8 engine at B=4, prompt 512:
@@ -166,6 +167,21 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    each slice read as pages, B4 over the tree, the Eq.-1 merge, within
    bf16 2e-2 of the plain whole-cache attention, B3 once a slice and B4
    once.
+4g. The analysis suite's card checks (``repro_torch/analysis``): (a) the
+   capture budget, ``capturecount``'s pinned smoke (``qwen2-0.5b`` reduced:
+   a paged scheduler stream with chunked prefill, abort and re-admission,
+   dense and paged ``generate``, an int8 stream, the speculative step
+   dense, sparse and overlapped) with real CUDA-graph captures equals
+   ``capture_budget.json`` in every bucket; (b) B1-B5 at ``launchbounds``'
+   configurations (the reference's shapes, the main path's full-width
+   ``vicuna-7b`` shapes, the split edges, the W=256 chain, Fig. 10b) with
+   every output and workspace buffer the wrappers allocate placed inside
+   a guarded buffer (``guarded_outputs``: GUARD elements of a sentinel on
+   each side, the payload NaN before the launch): every output element is
+   written, no guard element is touched, and every output is within its
+   plain version's tolerance; a control first shows that the guards see a
+   stray write and an unwritten element.  (``compute-sanitizer`` is in
+   the card machine's toolkit but cannot start a CUDA context there.)
 5. Drive the Fig. 10b study's path (the normalized tree kernel through its
    public entry point) with the counts set to 0 before it, and print the
    study's FLOP terms.  Time each kernel at the main path's shapes, the
@@ -855,6 +871,17 @@ EDGE_PS = 16
 def edge_fills(S):
     """The split-edge rows' fills: the whole cache, 70 and 200 slots."""
     return (S, 70, 200)
+
+
+def launch_shapes(np):
+    """This script's kernel shapes as ``launchbounds.shapes(chip)`` takes
+    them: the main path's (dense, and paged at its page size) and the
+    split edges."""
+    return dict(main={label: (kw["B"], kw["W"], kw["Hq"], kw["Hkv"],
+                              kw["hd"], kw["S"])
+                      for label, kw in main_shapes(np)},
+                main_ps=MAIN["page_size"], split_edge=SPLIT_EDGE,
+                edge_ps=EDGE_PS, edge_b=len(edge_fills(320)))
 
 
 def split_edge_inputs(torch, np, Hkv, G, W, hd, q_dtype, pool_dtype, S,
@@ -1555,12 +1582,16 @@ def phase_time_step(torch, loaded, card):
 
 # the runs profiled in phase 4 (both paths): the fixed-batch runs and (e)
 PROFILED = list(SERVE_RUNS) + ["(e) continuous"]
+# tokens a row of each profiled run: four chunks of 8, every one replayed
+# (the graph is captured at the first); the main path's 64 took phase 4
+# 328 s of a 1174 s script on a slow host, 26 s under the time limit
+PROFILE_TOKENS = 32
 
 
 def phase_profile(torch, loaded, card):
-    """``launch/profile_serve.py`` over each profiled run, graphed and
-    eager: the idle share, device time by class and activities per step
-    of each path.  The profiler must see the replayed graphs' kernels (the
+    """``launch/profile_serve.py`` over each profiled run at
+    PROFILE_TOKENS tokens a row, graphed and eager: the idle share, device
+    time by class and activities per step of each path.  The profiler must see the replayed graphs' kernels (the
     same ~2,500 a step run either way; a graph seen as one activity would
     show ~1): the graphed path's device activities per decode step must
     reach half the eager path's.  Not a tighter bound: an eager run's
@@ -1572,10 +1603,11 @@ def phase_profile(torch, loaded, card):
     for label in PROFILED:
         if label in SERVE_RUNS:
             mode, flags, _ = SERVE_RUNS[label]
-            args = serve.parse_args(argv(mode) + flags)
+            args = serve.parse_args(argv(mode, tokens=PROFILE_TOKENS)
+                                    + flags)
         else:
-            args = serve.parse_args(argv("ghidorah") + REPLAY_FLAGS
-                                    + REPLAY_RUNS[label])
+            args = serve.parse_args(argv("ghidorah", tokens=PROFILE_TOKENS)
+                                    + REPLAY_FLAGS + REPLAY_RUNS[label])
         rows = {}
         for path, ctx in (("graphed", contextlib.nullcontext),
                           ("eager", eager)):
@@ -4008,6 +4040,224 @@ def phase_custom_op_cost(torch, np, card):
     return out
 
 
+# phase 4g (b): each output and workspace buffer a kernel wrapper allocates
+# sits inside a buffer of GUARD_VALUE with GUARD elements on each side, its
+# own elements NaN before the launch
+GUARD = 4096
+GUARD_VALUE = 8192.0
+
+
+class _CudaArray:
+    """Elements ``[start, start + n)`` of the CUDA tensor ``owner`` as
+    ``__cuda_array_interface__``: ``torch.as_tensor`` of it shares the
+    memory and its storage starts there, so a wrapper's ``as_strided(...,
+    offset)`` counts from the payload's first element as it does for a
+    fresh allocation.  The tensor made from it keeps this object, and so
+    ``owner``, alive: the guards outlive every view of the payload."""
+
+    def __init__(self, owner, start, n, typestr):
+        self.owner = owner
+        self.__cuda_array_interface__ = {
+            "shape": (n,), "typestr": typestr,
+            "data": (owner[start:].data_ptr(), False), "version": 2}
+
+
+@contextlib.contextmanager
+def guarded_outputs(torch):
+    """Inside the block, ``torch.empty``, ``torch.empty_like`` and
+    ``Tensor.new_empty`` (what the wrappers allocate their outputs and
+    workspaces with) return the payload of a guarded buffer; yields the
+    list of (buffer, payload length) for ``check_guards``."""
+    import math
+    made = []
+    real = (torch.empty, torch.empty_like, torch.Tensor.new_empty)
+    codes = {torch.float32: "<f4", torch.bfloat16: "<i2"}
+
+    def alloc(shape, dtype, device):
+        n = math.prod(shape)
+        if not n:
+            return real[0](shape, dtype=dtype, device=device)
+        buf = real[0]((n + 2 * GUARD,), dtype=dtype, device=device)
+        buf.fill_(GUARD_VALUE)
+        buf[GUARD:GUARD + n] = float("nan")
+        made.append((buf, n))
+        t = torch.as_tensor(_CudaArray(buf, GUARD, n, codes[dtype]),
+                            device=device)
+        return t.view(dtype).view(shape)
+
+    def shape_of(size):
+        if len(size) == 1 and isinstance(size[0], (tuple, list,
+                                                   torch.Size)):
+            return tuple(size[0])
+        return tuple(size)
+
+    def empty(*size, dtype=None, device=None):
+        return alloc(shape_of(size), dtype or torch.float32, device)
+
+    def empty_like(t):
+        return alloc(tuple(t.shape), t.dtype, t.device)
+
+    def new_empty(self, *size):
+        return alloc(shape_of(size), self.dtype, self.device)
+
+    torch.empty, torch.empty_like, torch.Tensor.new_empty = \
+        empty, empty_like, new_empty
+    try:
+        yield made
+    finally:
+        torch.empty, torch.empty_like, torch.Tensor.new_empty = real
+
+
+def check_guards(torch, made, label):
+    """Raises unless every guard element still holds GUARD_VALUE and no
+    payload element is still NaN; returns the elements checked."""
+    torch.cuda.synchronize()
+    n_out = 0
+    for buf, n in made:
+        body = buf[GUARD:GUARD + n]
+        for side, guard in (("before", buf[:GUARD]),
+                            ("after", buf[GUARD + n:])):
+            hit = int((guard != GUARD_VALUE).sum())
+            if hit:
+                raise SmokeError(f"{label}: {hit} guard elements {side} an "
+                                 f"output of {n} were written")
+        miss = int(torch.isnan(body).sum())
+        if miss:
+            raise SmokeError(f"{label}: {miss} of {n} output elements were "
+                             f"never written")
+        n_out += n
+    return n_out
+
+
+def guards_see_faults(torch):
+    """The control of phase 4g (b): a write one element before a guarded
+    payload and a payload element left unwritten are each reported."""
+    for fault in ("stray write", "unwritten element"):
+        with guarded_outputs(torch) as made:
+            t = torch.empty(64, dtype=torch.float32, device=DEVICE)
+        t.fill_(1.0)
+        if fault == "stray write":
+            made[0][0][GUARD - 1] = 0.0
+        else:
+            t[17] = float("nan")
+        try:
+            check_guards(torch, made, f"control: {fault}")
+        except SmokeError:
+            continue
+        raise SmokeError(f"the output guards miss a {fault}")
+
+
+def guarded_call(torch, fn, args, label):
+    """``fn(*args)`` with its outputs guarded; returns (outputs, elements
+    checked)."""
+    with guarded_outputs(torch) as made:
+        out = fn(*args)
+    return out, check_guards(torch, made, label)
+
+
+def guard_shapes(np):
+    """(kind, label, inputs kwargs, q dtype, pool dtype) of phase 4g (b):
+    ``launchbounds``' configurations that the wrappers take (head_dim a
+    multiple of 8, of 16 over an int8 pool): the reference's shapes, the
+    main path's full-width shapes, the split edges, the W=256 chain and
+    Fig. 10b."""
+    from repro_torch.analysis import launchbounds as lb
+    out = []
+    for s, dtypes in lb.shapes(launch_shapes(np)):
+        for q, pool in dtypes:
+            if s.hd % (16 if s.paged and pool == "int8" else 8):
+                continue
+            label = f"{s.desc} q={q}" + (f" pool={pool}" if s.paged else "")
+            if s.paged:
+                out.append(("paged", label, s, q, pool))
+                continue
+            if s.S:
+                out.append(("dense", label, s, q, q))
+            out.append(("tree", label, s, q, q))
+    return out
+
+
+def guard_inputs(torch, np, kind, s, q, pool, seed):
+    """The operands of one phase 4g (b) case on the card."""
+    mask, depth = rand_tree(np, s.W, seed=s.W + seed)
+    if kind == "dense":
+        return attention_inputs(torch, np, s.B, s.W, s.Hq, s.Hkv, s.hd, s.S,
+                                max(s.S - 4, 1), 0, q, seed,
+                                tree=(mask, depth))
+    if kind == "tree":
+        return sparse_inputs(torch, np, B=s.B, W=s.W, Hq=s.Hq, Hkv=s.Hkv,
+                             hd=s.hd, dtype=q, mask=mask, seed=seed)
+    table = np.asarray(s.table, np.int32)
+    fills = [s.maxp * s.ps - 1 - b for b in range(s.B)]
+    a = paged_inputs(torch, np, B=s.B, W=s.W, Hq=s.Hq, Hkv=s.Hkv, hd=s.hd,
+                     ps=s.ps, table=table, n_pages=s.P - 1, fills=fills,
+                     pool_dtype=pool, q_dtype=q, seed=seed,
+                     tree=(mask, depth))
+    # no key on an unreserved page (the plain version reads the trash page
+    # there, the kernel skips the slot)
+    off = np.repeat(table < 0, s.ps, axis=1)
+    a["key_pos"][torch.as_tensor(off).to(DEVICE)] = -1
+    return a
+
+
+def phase_analysis(torch, np, card):
+    """Phase 4g: (a) the capture budget: ``capturecount``'s pinned smoke
+    with real CUDA-graph captures equals ``capture_budget.json`` in every
+    bucket; (b) B1-B5 at ``guard_shapes`` with every output and workspace
+    inside a guarded buffer (``guarded_outputs``): every output element
+    written, every guard element untouched, and the outputs within their
+    plain versions' tolerances."""
+    from repro_torch.analysis import capturecount
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import tree_partial as tp
+    from repro_torch.kernels.verify_attention import verify_attention
+    t0 = time.perf_counter()
+    budget = json.loads(capturecount.BUDGET_PATH.read_text())
+    observed = capturecount.run_smoke(DEVICE)
+    drift = capturecount.diff_counts(observed, budget)
+    log(f"phase 4g (a) captures per step on the card {observed}, budget "
+        f"{budget}; {time.perf_counter() - t0:.1f}s")
+    if drift:
+        raise SmokeError(f"capture budget: {'; '.join(drift.values())}")
+    drop_engines(torch)
+    t1 = time.perf_counter()
+    calls = {"dense": [("verify_attention", verify_attention,
+                        plain.tree_attention_plain)],
+             "paged": [("paged_tree_attention", pa.paged_tree_attention,
+                        plain.paged_tree_attention_plain),
+                       ("paged_cache_attention", pa.paged_cache_attention,
+                        plain.paged_cache_attention_plain)],
+             "tree": [("sparse_tree_attention_partial",
+                       tp.sparse_tree_attention_partial,
+                       plain.sparse_tree_attention_partial_plain),
+                      ("sparse_tree_attention", tp.sparse_tree_attention,
+                       plain.sparse_tree_attention_plain)]}
+    guards_see_faults(torch)
+    worst, checked, n_calls = {}, 0, 0
+    for i, (kind, label, s, q, pool) in enumerate(guard_shapes(np)):
+        a = guard_inputs(torch, np, kind, s, q, pool, seed=900 + i)
+        for name, fn, ref in calls[kind]:
+            args = a if kind != "paged" else paged_args(
+                a, tree=name == "paged_tree_attention")
+            got, n = guarded_call(torch, fn, args, f"{name} at {label}")
+            err = _hold(torch, name, f"guarded {label}", got, ref(*args),
+                        TOL[f"torch.{q}"])
+            worst[name] = max(worst.get(name, 0.0), err)
+            checked += n
+            n_calls += 1
+        del a
+    log(f"phase 4g (b) {n_calls} guarded calls of B1-B5 over "
+        f"{len(guard_shapes(np))} shape and dtype cases ({card}): "
+        f"{checked} output elements all written, every guard of "
+        f"{GUARD} elements intact (the control's stray write and unwritten "
+        f"element both seen); max abs err against the plain versions "
+        f"{json.dumps(worst)}; {time.perf_counter() - t1:.1f}s")
+    return dict(captures=observed, guarded_calls=n_calls,
+                elements=checked, max_abs_err=worst,
+                seconds=time.perf_counter() - t0)
+
+
 def kernel_entry(name, launches, max_err, row, card, **extra):
     """One entry of the ``{"kernels": [...]}`` line: ``ms`` is the kernel's
     device time (profiler), ``kernel_ms`` the time of a call (CUDA events
@@ -4065,6 +4315,8 @@ def main():
     dtensor = phase_dtensor_step(torch, np, card)
     dtensor["sequence_split"] = phase_sequence_split(torch, np, card)
     log(f"phase 4f done at {time.perf_counter() - t_start:.1f}s")
+    analysis = phase_analysis(torch, np, card)
+    log(f"phase 4g done at {time.perf_counter() - t_start:.1f}s")
     study = phase_sparse_study(torch, np, launches)
     timing = phase_timing(torch, np, card)
     paged = phase_paged_timing(torch, np, card)
@@ -4184,6 +4436,7 @@ def main():
     log(f"custom op host ms a call: {json.dumps(custom_op)}")
     log(f"training: {json.dumps(training)}")
     log(f"families: {json.dumps(families, default=str)}")
+    log(f"analysis: {json.dumps(analysis)}")
     log(f"dry run: {json.dumps(dryruns)}; dtensor step: "
         f"{json.dumps(dtensor)}")
     steps = {label: r["stats"]["device_steps"] for label, r in served.items()}

@@ -225,7 +225,7 @@ struct Ptrs {
 
 // The tensor-core route: bf16 queries over a bf16 pool without scales or
 // an int8 pool, head_dim within the register tiles (a float pool with
-// scales is dequantized in fp32 by the CUDA cores).  kernels/launch.py::
+// scales is dequantized in fp32 by the CUDA cores).  kernels/plan.py::
 // flash_route states the same rule.
 template <typename TQ, typename TP>
 constexpr bool kFlashTypes = std::is_same<TQ, __nv_bfloat16>::value &&
@@ -385,7 +385,7 @@ size_t paged_attention_flash_smem_bytes(int hd) {
 }
 
 // Blocks of the fused tensor-core walk resident on one SM (the occupancy
-// query; kernels/launch.py::split_plan sizes the split with it).
+// query; kernels/plan.py::split_plan sizes the split with it).
 int paged_attention_flash_blocks_per_sm(int hd) {
   static attn::SmemAttr attr;
   return blocks_per_sm(paged_flash_kernel<__nv_bfloat16>, attr, hd);

@@ -20,7 +20,7 @@
 //     every row that sees a key (a tree row always sees itself); a row whose
 //     mask is empty stores 0, as the TPU kernel does.
 //
-// B4 has two routes (partial_route; kernels/tree_partial.py states the same
+// B4 has two routes (partial_route; kernels/plan.py states the same
 // rule):
 //   * W <= 64 and head_dim <= 128, fp32 or bf16 (tree_warp_kernel): the
 //     main path's verify (W = 8, G = 1).  There a (b, kv head) pair is 8
@@ -63,7 +63,7 @@
 // hd=128: 256 query rows per kv head against ONE key tile) went into too
 // few blocks (B*Hkv = 8 kv heads) and one dot product per thread.  Its
 // kernels cut each kv head's G*W rows into small row tiles, picked on the
-// host (kernels/tree_partial.py::norm_rows: the largest tile that still
+// host (kernels/plan.py::norm_rows: the largest tile that still
 // gives ~one block per SM), so Fig. 10b runs 128 blocks of 16 rows:
 //   * bf16, head_dim <= 128 (tree_norm_flash_kernel): flash_common.cuh's
 //     tree walk (TreeSlots through the cp.async ring, ldmatrix, mma.sync
@@ -137,7 +137,7 @@ constexpr int kWarpThreads = 32 * kWarpWarps;
 constexpr int kWarpKeys = 64;     // the most keys a row (one pass)
 constexpr int kWarpHdMax = 128;   // P V: four output columns a lane
 
-// B4's routes (kernels/tree_partial.py::partial_route states the same
+// B4's routes (kernels/plan.py::partial_route states the same
 // rule): 1 = tree_warp_kernel, 0 = tree_partial_kernel.
 int partial_route(int W, int hd) {
   return W <= kWarpKeys && hd <= kWarpHdMax ? 1 : 0;
@@ -539,7 +539,7 @@ int by_q(int q_dtype, const void* q, const void* kn, const void* vn,
   return (int)cudaErrorInvalidValue;
 }
 
-// B5's routes (kernels/tree_partial.py::norm_route states the same rule):
+// B5's routes (kernels/plan.py::norm_route states the same rule):
 // 1 = tensor cores, 2 = the fp32 one-pass kernel, 0 = tree_partial_kernel.
 int norm_route(int q_dtype, int W, int hd) {
   if (q_dtype == 1 && hd <= flash::kHdMax) return 1;
@@ -640,7 +640,7 @@ int tree_partial_floor(const TreePlan* p, void* stream) {
 // The normalized tree attention: writes `out` in q's dtype.  `route` is
 // norm_route's choice (anything else is refused); `rows` the query rows a
 // block (route 1: 16, 32 or 64; route 2: 16 or 32); `tile` the key tile
-// of route 0 (with its rows from kernels/launch.py::pick_tiles).
+// of route 0 (with its rows from kernels/plan.py::pick_tiles).
 int sparse_tree_attention(int q_dtype, const void* q, const void* kn,
                           const void* vn, const void* mask, void* out, int B,
                           int W, int Hq, int Hkv, int hd, int route, int tile,

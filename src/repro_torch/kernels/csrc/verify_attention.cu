@@ -24,7 +24,7 @@
 // a workspace; merge_kernel, a second launch from the same entry point,
 // folds the parts by Eq. 1 (the math of models/common.py::merge_partials)
 // into the output.  n_split is chosen on the host from the shapes alone
-// (kernels/launch.py::pick_split): as many splits as fill the card's
+// (kernels/plan.py::pick_split): as many splits as fill the card's
 // resident block slots once (the occupancy query below times the SM
 // count; 2 x 132 on an H100 SXM), which at B*Hkv = 128 is 256 blocks.
 // That split loop over the slots takes
@@ -84,7 +84,7 @@ struct Args {
 };
 
 // The bf16 tensor-core path: bf16 queries, head_dim within the register
-// tiles.  kernels/launch.py::flash_route states the same rule.
+// tiles.  kernels/plan.py::flash_route states the same rule.
 template <typename T>
 constexpr bool kFlashType = std::is_same<T, __nv_bfloat16>::value;
 inline bool use_flash(bool bf16, int hd) {
@@ -251,7 +251,7 @@ size_t verify_attention_flash_smem_bytes(int hd) {
 }
 
 // Blocks of the tensor-core walk resident on one SM (the occupancy query;
-// kernels/launch.py::split_plan sizes the split with it).
+// kernels/plan.py::split_plan sizes the split with it).
 int verify_attention_flash_blocks_per_sm(int hd) {
   static attn::SmemAttr attr;
   const int smem = (int)flash::layout(hd).total;

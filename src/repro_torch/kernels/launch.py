@@ -1,7 +1,7 @@
 """What every kernel wrapper does around its launch: count its launches,
-pick the key tile and the query-row tile that fit a block's shared memory,
-pick the split over the cache of the split walks (B1, B2, and B3 with no
-tree part) and lay out their partials' workspace, check the operands'
+plan it (``plan.py``: the key and query-row tiles, the split over the
+cache of the split walks B1, B2 and B3), lay out the split walks'
+partials' workspace, check the operands'
 device, layout and alignment, keep a launch plan per call signature
 (``Plans``, with the per-call checks in ``pointers``), and launch on
 PyTorch's current stream, raising on a CUDA error (a refused launch never
@@ -15,20 +15,16 @@ from __future__ import annotations
 
 import functools
 import itertools
-import math
 import threading
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
-SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
-TILES = (64, 32, 16)          # keys per tile, largest first
-# the tensor-core walk of csrc/flash_common.cuh: keys per tile (kTile),
-# query rows per block (kRows: 4 warps of 16), head_dim its register
-# tiles hold (kHdMax)
-FLASH_TILE = 64
-FLASH_ROWS = 64
-FLASH_HD_MAX = 128
+# the plans (``plan.py``, standard library only), re-exported: the
+# wrappers and their tests plan through this module
+from repro_torch.kernels.plan import (  # noqa: F401
+    FLASH_HD_MAX, FLASH_ROWS, FLASH_TILE, SMEM_LIMIT, TILES, flash_route,
+    pick_split, pick_tiles, split_plan)
 
 
 class Counted:
@@ -120,143 +116,10 @@ def count(wrapper: Counted) -> None:
         tally[wrapper] = tally.get(wrapper, 0) + 1
 
 
-def _max_rows(smem_bytes, W, hd, tile, GW):
-    """Most query rows (at most GW) whose block fits at ``tile`` keys; 0 if
-    not even one does.  ``smem_bytes`` grows with the row count."""
-    lo, hi = 0, GW
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if smem_bytes(mid, W, hd, tile) <= SMEM_LIMIT:
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
-
-
-# (id of the library's smem_bytes, GW, W, hd) -> (smem_bytes, tile, rows):
-# the choice depends on shapes alone, and a call should not redo the
-# search; the entry keeps smem_bytes alive, so its id is never reused
-_PICKED: Dict[tuple, Tuple[object, int, int]] = {}
-
-
-def pick_tiles(smem_bytes, GW, W, hd):
-    """``(key tile, rows per block)`` for G*W = ``GW`` query rows:
-    ``smem_bytes(rows, W, hd, tile)`` is the kernel library's own count.
-
-    The largest key tile at which all GW rows fit one block (the main
-    path's verify and decode: one row tile, as before row tiles existed);
-    else the largest key tile and the most rows a block of it holds, spread
-    evenly over the row tiles (a W=256 prefill piece: 4 tiles of 64)."""
-    key = (id(smem_bytes), GW, W, hd)
-    if key not in _PICKED:
-        _PICKED[key] = (smem_bytes,) + _pick(smem_bytes, GW, W, hd)
-    return _PICKED[key][1:]
-
-
-def _pick(smem_bytes, GW, W, hd):
-    for tile in TILES:
-        if smem_bytes(GW, W, hd, tile) <= SMEM_LIMIT:
-            return tile, GW
-    for tile in TILES:
-        rows = _max_rows(smem_bytes, W, hd, tile, GW)
-        if rows:
-            n = -(-GW // rows)
-            return tile, -(-GW // n)
-    raise ValueError(f"a W={W} tree at head_dim {hd} does not fit one "
-                     f"block's shared memory")
-
-
-def flash_route(q_dtype, pool_dtype, hd, scaled=False) -> bool:
-    """Whether a split walk (B1, B2, B3) runs on the tensor cores: bf16
-    queries over bf16 keys without scales (or an int8 pool, dequantized to
-    bf16 on the way), head_dim within the register tiles.  Otherwise its
-    products run on the CUDA cores in fp32 in the same split grid.  The C
-    sources (``use_flash``) state the same rule."""
-    return (q_dtype == torch.bfloat16 and hd <= FLASH_HD_MAX
-            and (pool_dtype == torch.int8
-                 or (pool_dtype == torch.bfloat16 and not scaled)))
-
-
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     """Streaming multiprocessors of ``device`` (132 on an H100 SXM)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
-def pick_split(S: int, blocks: int, tile: int, resident: int,
-               page: int = 1, extra: int = 0) -> Tuple[int, int]:
-    """``(n_split, split_len)`` of a walk over ``S`` slots whose grid has
-    ``blocks`` blocks per split (B*Hkv*row tiles) and ``extra`` blocks
-    besides (the tree's, where it is a part of its own): from the shapes
-    alone, no read of the data.
-
-    A split holds a whole number of chunks of ``lcm(tile, page)`` slots
-    (whole key tiles, and whole pages of a paged pool); the last one may
-    end at the ragged edge S.  As many splits as the card holds resident
-    at once (``resident`` blocks: every block starts at once and pays its
-    fixed cost, its first copies' latency and its partial's store, only
-    once per SM slot; ``chip_smoke.py`` phase 5 times this fill against
-    two), never more than there are chunks, at least one; so
-    ``n_split = 1`` when S fits one chunk.  The chunks are spread evenly,
-    and no split is empty."""
-    gran = tile * page // math.gcd(tile, page)
-    chunks = -(-S // gran)
-    n = max(1, min(chunks, (resident - extra) // max(blocks, 1)))
-    per = -(-chunks // n)
-    n = -(-chunks // per)
-    return n, per * gran
-
-
-# (ids of the library's functions, sms, flash, shapes) -> (the functions,
-# split_plan's answer): from shapes alone, so a call does not redo it; the
-# entry keeps the functions alive, so no id is reused
-_PLANS: Dict[tuple, Tuple[object, Tuple[int, int, int, int, int]]] = {}
-
-
-def split_plan(smem_bytes, flash_smem_bytes, flash_blocks_per_sm, sms, flash,
-               B, W, Hq, Hkv, hd, S, page=1, tree=True):
-    """``(tile, rows, n_split, split_len, parts)`` of a split walk (B1,
-    B2; B3 with ``tree=False``).  The tensor-core path takes
-    ``FLASH_TILE`` keys and ``FLASH_ROWS`` rows a block
-    (``flash_smem_bytes(hd)`` must fit); the CUDA-core path takes
-    ``pick_tiles``' choice.  ``parts`` partials: one per split, and for a
-    walk with a tree one more unless the tensor-core path walks a tree of
-    at most one key tile in the last split's block
-    (``flash_common.cuh::split_block``); the cache-only walk has no tree
-    part, so ``parts == n_split`` at every W.
-
-    The card holds ``flash_blocks_per_sm(hd)`` blocks (the library's
-    occupancy query of its tensor-core walk) on each of its ``sms`` SMs at
-    once.  The CUDA-core walk, which only fp32 queries or head_dim above
-    128 take, counts the same slots at head_dim 128: its split count sets
-    how many blocks run, never what they compute."""
-    key = (id(smem_bytes), id(flash_smem_bytes), id(flash_blocks_per_sm),
-           sms, flash, B, W, Hq, Hkv, hd, S, page, tree)
-    hit = _PLANS.get(key)
-    if hit is None:
-        GW = Hq // Hkv * W
-        if flash:
-            if flash_smem_bytes(hd) > SMEM_LIMIT:
-                raise ValueError(f"head_dim {hd} does not fit one block's "
-                                 f"shared memory")
-            tile, rows = FLASH_TILE, FLASH_ROWS
-        else:
-            tile, rows = pick_tiles(smem_bytes, GW, W, hd)
-        per_sm = flash_blocks_per_sm(min(hd, FLASH_HD_MAX))
-        if per_sm < 1:
-            raise RuntimeError(f"the occupancy query of the split walk "
-                               f"failed at head_dim {hd} ({per_sm})")
-        blocks = B * Hkv * -(-GW // rows)
-        # the tree: a part of its own
-        apart = tree and (not flash or W > FLASH_TILE)
-        n_split, split_len = pick_split(S, blocks, tile, per_sm * sms, page,
-                                        extra=blocks if apart else 0)
-        parts = n_split + apart
-        hit = _PLANS[key] = ((smem_bytes, flash_smem_bytes,
-                              flash_blocks_per_sm),
-                             (tile, rows, n_split, split_len, parts))
-    return hit[1]
 
 
 def workspace(q, parts):

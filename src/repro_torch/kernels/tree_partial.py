@@ -10,8 +10,8 @@ exact arguments.  A CPU tensor runs the plain version; a CUDA tensor
 launches the kernel or raises.  Each wrapper's ``.launches`` counts its
 kernel's launches and nothing else.
 
-B4 has two routes (``partial_route``; ``csrc/tree_partial.cu`` states the
-same rule): ``tree_warp_kernel`` (one warp per 8 query rows, all W keys in
+B4 has two routes (``plan.partial_route``; ``csrc/tree_partial.cu`` states
+the same rule): ``tree_warp_kernel`` (one warp per 8 query rows, all W keys in
 one pass) for W <= 64 and head_dim <= 128, in fp32 and bf16, and
 ``tree_partial_kernel`` otherwise (a W=256 prefill piece, head_dim > 128).
 Its call is built for the host's time: a plan per call signature
@@ -20,8 +20,8 @@ once per signature, the C plan is packed once), the contiguity and
 alignment checks on every call (``launch.pointers``), one allocation for
 the three partials, and a C call of 7 pointers.
 
-B5 has three routes (``norm_route``; ``csrc/tree_partial.cu`` states the
-same rule): bf16 at head_dim <= 128 on the tensor cores, fp32 with W <= 64
+B5 has three routes (``plan.norm_route``; ``csrc/tree_partial.cu`` states
+the same rule): bf16 at head_dim <= 128 on the tensor cores, fp32 with W <= 64
 and head_dim <= 128 in one exact fp32 pass on the CUDA cores, and B4's
 kernel with the normalized epilogue otherwise.  The first two cut each kv
 head's G*W query rows into small row tiles (``norm_rows``) so that a
@@ -35,9 +35,13 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import (FLASH_HD_MAX, Counted, Plans,
-                                        check_common, launch, pick_tiles,
-                                        pointers)
+from repro_torch.kernels.launch import (Counted, Plans, check_common,
+                                        launch, pointers)
+# the routes and row tiles (``plan.py``), re-exported with the wrappers
+from repro_torch.kernels.plan import (  # noqa: F401
+    F32_KEYS, NORM_MIN_BLOCKS, NORM_ROWS, PARTIAL_TILES, PARTIAL_WARP,
+    ROUTE_F32, ROUTE_FLASH, ROUTE_TILES, WARP_KEYS, WARP_ROWS, norm_route,
+    norm_rows, partial_route, pick_tiles)
 from repro_torch.kernels.plain import (sparse_tree_attention_partial_plain,
                                        sparse_tree_attention_plain)
 
@@ -95,20 +99,6 @@ def _check(q, k_new, v_new, tree_mask):
     return B, W, Hq, Hkv, hd
 
 
-# B4's routes (the codes of csrc/tree_partial.cu::partial_route)
-PARTIAL_TILES, PARTIAL_WARP = 0, 1
-WARP_KEYS = 64              # the warp route's keys a row, in one pass
-WARP_ROWS = 8               # query rows a block of it (two a warp)
-
-
-def partial_route(W, hd) -> int:
-    """B4's route: ``tree_warp_kernel`` with all W keys in one pass for
-    W <= 64 and head_dim <= 128 (fp32 or bf16), else
-    ``tree_partial_kernel``."""
-    return PARTIAL_WARP if W <= WARP_KEYS and hd <= FLASH_HD_MAX \
-        else PARTIAL_TILES
-
-
 class _TreePlan(ctypes.Structure):
     """``csrc/tree_partial.cu::TreePlan``, field by field."""
     _fields_ = [("route", _I), ("q_dtype", _I), ("B", _I), ("W", _I),
@@ -164,40 +154,6 @@ def _partial_plan(q, k_new, v_new, tree_mask):
 
 
 PARTIAL_PLANS = Plans(_partial_plan)
-
-
-# B5's routes (the codes of csrc/tree_partial.cu::norm_route)
-ROUTE_TILES, ROUTE_FLASH, ROUTE_F32 = 0, 1, 2
-F32_KEYS = 64               # the fp32 route's one key tile
-# query rows a block, largest first, per route
-NORM_ROWS = {ROUTE_FLASH: (64, 32, 16), ROUTE_F32: (32, 16)}
-# blocks a grid should reach: about one per SM of an H100 SXM (132)
-NORM_MIN_BLOCKS = 128
-
-
-def norm_route(dtype, W, hd) -> int:
-    """B5's route: the tensor cores for bf16 at head_dim <= 128, the
-    one-pass fp32 kernel for fp32 with all W keys in one tile and head_dim
-    <= 128, else B4's kernel with the normalized epilogue."""
-    if dtype == torch.bfloat16 and hd <= FLASH_HD_MAX:
-        return ROUTE_FLASH
-    if dtype == torch.float32 and W <= F32_KEYS and hd <= FLASH_HD_MAX:
-        return ROUTE_F32
-    return ROUTE_TILES
-
-
-def norm_rows(route, B, Hkv, GW) -> int:
-    """Query rows a block of B5's route: the largest of ``NORM_ROWS`` whose
-    grid of ``B * Hkv * ceil(GW / rows)`` blocks still reaches
-    ``NORM_MIN_BLOCKS``, else the smallest (Fig. 10b, B*Hkv = 8 and
-    G*W = 256: 16 rows, 128 blocks).  A smaller tile costs more blocks
-    each reading the kv head's W keys again (from L2); a larger one leaves
-    SMs idle."""
-    choices = NORM_ROWS[route]
-    for rows in choices:
-        if B * Hkv * -(-GW // rows) >= NORM_MIN_BLOCKS:
-            return rows
-    return choices[-1]
 
 
 def _on_cuda(name, q):

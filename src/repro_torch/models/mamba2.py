@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hcmp import sharding as shd
 from repro_torch.core.hcmp.sharding import regather
 from repro_torch.models import common as cm
 
@@ -111,7 +112,7 @@ def _out_proj(p, y):
     return regather(regather(y, w) @ w)
 
 
-def _ssd_chunk(cfg, p, x_c, bc_c, dt_raw, S0):
+def _ssd_chunk(p, x_c, bc_c, dt_raw, S0):
     """Closed-form parallel evaluation of one SSD chunk (the exact unroll
     of the scalar-decay recurrence; decay <= 1, so no stabilizer):
 
@@ -120,9 +121,12 @@ def _ssd_chunk(cfg, p, x_c, bc_c, dt_raw, S0):
             + D x_t
 
     with L_t = cumsum log a.  x_c: (B,T,di) conv'd; bc_c: (B,T,2N);
-    dt_raw: (B,T,nh); S0 float32.  Returns (y (B,T,di), S_T)."""
-    di, nh, hd, N = dims(cfg)
-    B, T, _ = x_c.shape
+    dt_raw: (B,T,nh); S0 float32; the widths are read from the inputs
+    (a rank's heads under ``_ssd_chunk_split``).  Returns (y (B,T,di),
+    S_T)."""
+    B, T, di = x_c.shape
+    nh = dt_raw.shape[-1]
+    hd, N = di // nh, bc_c.shape[-1] // 2
     xh = x_c.float().reshape(B, T, nh, hd)
     Bm = bc_c[..., :N].float()                                  # (B, T, N)
     Cm = bc_c[..., N:].float()
@@ -151,31 +155,76 @@ def _ssd_chunk(cfg, p, x_c, bc_c, dt_raw, S0):
     return y.reshape(B, T, di), S_T
 
 
+def _causal_conv(tail, u, w, b):
+    """Causal depthwise conv of one channel group: ``tail`` (B, K-1, c)
+    the carried inputs, ``u`` (B, S, c) the new ones, ``w`` (K, c), ``b``
+    (c,).  Returns (the silu'd output (B, S, c) float32, the K-1 newest
+    inputs).  Each channel is its own conv, so the x and the B/C groups
+    run apart and the x channels keep their split over heads."""
+    S = u.shape[1]
+    K = w.shape[0]
+    hist = torch.cat([tail.to(u.dtype), u], dim=1)
+    wins = torch.stack([hist[:, i:i + S] for i in range(K)], dim=2)
+    out = torch.einsum("bskc,kc->bsc", wins.float(), w.float()) + b.float()
+    return F.silu(out), hist[:, hist.shape[1] - (K - 1):]
+
+
 def _conv_prefill(cfg, p, x, state):
-    """The projections and the causal depthwise conv of a prefill.  Returns
-    (z, silu'd conv output (B, S, C) float32, dt_raw, hist)."""
-    S = x.shape[1]
+    """The projections and the causal depthwise conv of a prefill, the x
+    channels and the B/C channels as two convs.  Returns (z, x_c (B, S,
+    di), bc_c (B, S, 2N), both silu'd float32, dt_raw, the conv tail (B,
+    K-1, C))."""
+    di = dims(cfg)[0]
     z = x @ p["in_z"]
     xin = x @ p["in_x"]
     bc = x @ p["in_bc"]
     dt_raw = x @ p["in_dt"]
-    xbc = torch.cat([xin, bc], dim=-1)
-    K = cfg.ssm_conv
-    hist = torch.cat([state["conv"].to(xbc.dtype), xbc], dim=1)
-    conv_w = torch.cat([p["conv_wx"], p["conv_wbc"]], dim=-1)
-    conv_b = torch.cat([p["conv_bx"], p["conv_bbc"]], dim=-1)
-    wins = torch.stack([hist[:, i:i + S] for i in range(K)], dim=2)
-    xbc_c = torch.einsum("bskc,kc->bsc", wins.float(), conv_w.float()) \
-        + conv_b.float()
-    return z, F.silu(xbc_c), dt_raw, hist
+    tail = state["conv"]
+    x_c, tail_x = _causal_conv(tail[..., :di], xin, p["conv_wx"],
+                               p["conv_bx"])
+    bc_c, tail_bc = _causal_conv(tail[..., di:], bc, p["conv_wbc"],
+                                 p["conv_bbc"])
+    return z, x_c, bc_c, dt_raw, torch.cat([tail_x, tail_bc], dim=-1)
 
 
-def _finish(cfg, p, x, z, y, hist):
-    K = cfg.ssm_conv
+def _ssd_chunk_split(p, x_c, bc_c, dt_raw, S0):
+    """``_ssd_chunk`` on each rank's rows and heads when ``x_c`` is a
+    DTensor: its einsums flatten batch and heads, which DTensor cannot do
+    on a tensor split over both.  The heads follow ``x_c``'s split of its
+    channels over ``model``; dt, the per-head parameters and the state
+    are cut to match (a local slice), and B/C comes whole on that axis."""
+    if not shd.is_dtensor(x_c):
+        return _ssd_chunk(p, x_c, bc_c, dt_raw, S0)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    on_rows = [pl if pl == Shard(0) else Replicate()
+               for pl in x_c.placements]
+    if any(pl not in (Shard(0), Shard(2), Replicate())
+           for pl in x_c.placements):
+        raise ValueError(f"SSD chunk of x laid out as {x_c.placements}")
+
+    def heads(dim):             # the rows' split and the heads on ``dim``
+        return [Shard(dim) if pl == Shard(2) else r
+                for pl, r in zip(x_c.placements, on_rows)]
+
+    per_head = [Shard(0) if pl == Shard(2) else Replicate()
+                for pl in x_c.placements]
+    mesh = x_c.device_mesh
+    return local_map(
+        lambda x, bc, dt, s, dt_bias, A_log, D: _ssd_chunk(
+            {"dt_bias": dt_bias, "A_log": A_log, "D": D}, x, bc, dt, s),
+        out_placements=(heads(2), heads(1)),
+        in_placements=(heads(2), on_rows, heads(2), heads(1), per_head,
+                       per_head, per_head),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x_c, bc_c, dt_raw, shd.replicated(S0, mesh),
+            *(shd.replicated(p[k], mesh) for k in ("dt_bias", "A_log", "D")))
+
+
+def _finish(cfg, p, x, z, y):
     y = cm.rmsnorm((y * F.silu(z.float())).to(x.dtype), p["norm"],
                    cfg.rmsnorm_eps)
-    conv = hist[:, -(K - 1):, :] if K > 1 else hist[:, :0, :]
-    return _out_proj(p, y), conv
+    return _out_proj(p, y)
 
 
 def mamba_prefill(cfg, p, x, state=None, chunk=256):
@@ -183,38 +232,35 @@ def mamba_prefill(cfg, p, x, state=None, chunk=256):
     the scan when ``cfg.mamba_chunked`` is False).  Returns (out (B, S, d),
     state)."""
     B, S, _ = x.shape
-    di = dims(cfg)[0]
     if state is None:
         state = init_state(cfg, B, dtype=x.dtype, device=x.device)
     if not getattr(cfg, "mamba_chunked", True):
         return _mamba_prefill_scan(cfg, p, x, state)
-    z, xbc_c, dt_raw, hist = _conv_prefill(cfg, p, x, state)
+    z, x_c, bc_c, dt_raw, conv = _conv_prefill(cfg, p, x, state)
 
     T = min(chunk, S)
     ssm = state["ssm"]
     ys = []
     for lo in range(0, S, T):          # whole chunks, then the ragged tail
         hi = min(lo + T, S)
-        y, ssm = _ssd_chunk(cfg, p, xbc_c[:, lo:hi, :di],
-                            xbc_c[:, lo:hi, di:], dt_raw[:, lo:hi], ssm)
+        y, ssm = _ssd_chunk_split(p, x_c[:, lo:hi], bc_c[:, lo:hi],
+                                  dt_raw[:, lo:hi], ssm)
         ys.append(y)
-    out, conv = _finish(cfg, p, x, z, torch.cat(ys, dim=1), hist)
-    return out, {"ssm": ssm, "conv": conv}
+    return _finish(cfg, p, x, z, torch.cat(ys, dim=1)), \
+        {"ssm": ssm, "conv": conv}
 
 
 def _mamba_prefill_scan(cfg, p, x, state):
     """Time-scan prefill (the correctness baseline)."""
     S = x.shape[1]
-    di = dims(cfg)[0]
-    z, xbc_c, dt_raw, hist = _conv_prefill(cfg, p, x, state)
+    z, x_c, bc_c, dt_raw, conv = _conv_prefill(cfg, p, x, state)
     ssm = state["ssm"]
     ys = []
     for t in range(S):
-        y, ssm = _ssd_step(cfg, p, xbc_c[:, t, :di], xbc_c[:, t, di:],
-                           dt_raw[:, t], ssm)
+        y, ssm = _ssd_step(cfg, p, x_c[:, t], bc_c[:, t], dt_raw[:, t], ssm)
         ys.append(y)
-    out, conv = _finish(cfg, p, x, z, torch.stack(ys, dim=1), hist)
-    return out, {"ssm": ssm, "conv": conv}
+    return _finish(cfg, p, x, z, torch.stack(ys, dim=1)), \
+        {"ssm": ssm, "conv": conv}
 
 
 def init_state(cfg, batch, dtype=torch.bfloat16, device="cuda"):

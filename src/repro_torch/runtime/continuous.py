@@ -851,7 +851,8 @@ class ContinuousScheduler:
                 free_rows = True      # pool can fund: leave rows empty
                 break
             req = self._pending.pop(idx)
-            # reprolint: disable=R3 (req.tokens is a host list, no sync)
+            # req.tokens is a host list: no sync
+            # reprolint: disable=R3 # torchlint: disable=T3 (a host list)
             prompt_np = np.asarray(req.tokens, np.int32)
             S = len(prompt_np)
             chunked = bool(C) and S > C
@@ -914,9 +915,9 @@ class ContinuousScheduler:
             self._dev, done, rem, raw = eng.sched_step(
                 self._dev, done_np, rem_np, K, eos_val)
             # the boundary's budgeted sync: done/rem cross with the chunk
-            # reprolint: disable=R3 (intended boundary sync)
+            # reprolint: disable=R3 # torchlint: disable=T3 (boundary sync)
             done_np = self._done_np = np.asarray(done).copy()
-            # reprolint: disable=R3 (intended boundary sync)
+            # reprolint: disable=R3 # torchlint: disable=T3 (boundary sync)
             rem_np = self._rem_np = np.asarray(rem).copy()
             per_row = eng.sched_emitted(raw)
             self._n_chunks += 1

@@ -747,7 +747,7 @@ class DecodeEngine(_PagedPoolMixin):
                                    window=self.window)
         n_max = int(budget.max())
         # prologue sync: the prefill's first token
-        first = state.cur_token.tolist()
+        first = state.cur_token.tolist()  # torchlint: disable=T3 (prologue)
         outs = [[first[b]] for b in range(B)]
         done = state.cur_token == eos_val
         rem = torch.as_tensor(budget - 1, device=self.device)
@@ -769,7 +769,7 @@ class DecodeEngine(_PagedPoolMixin):
             D = toks.shape[2]
             host = torch.cat([toks.reshape(-1), ns.reshape(-1),
                               done.to(torch.int64), rem.to(torch.int64)])
-            host = host.cpu().numpy()
+            host = host.cpu().numpy()  # torchlint: disable=T3 (the sync)
             times.append(time.perf_counter() - t0)
             device_steps += k
             if self._graphs.last == "replay":
@@ -968,7 +968,7 @@ class DecodeEngine(_PagedPoolMixin):
         # the boundary's ONE host sync: every value the scheduler reads
         host = torch.cat([toks.reshape(-1), ns.reshape(-1),
                           done.to(torch.int64), rem.to(torch.int64)])
-        host = host.cpu().numpy()
+        host = host.cpu().numpy()  # torchlint: disable=T3 (the sync)
         n = K * B
         return (state, host[n * (D + 1):n * (D + 1) + B] != 0, host[-B:],
                 (host[:n * D].reshape(K, B, D),

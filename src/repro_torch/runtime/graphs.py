@@ -336,7 +336,7 @@ class ChunkGraphs:
         return len(self._graphs)
 
     @staticmethod
-    def key(strategy, state: SpecState, done, tree_kernel,
+    def key(strategy, state: SpecState, done, tree_kernel: str,
             partition="inline") -> tuple:
         kv = state.cache.kv
         return (partition, strategy.draft, tree_kernel, type(kv).__name__,

@@ -166,7 +166,7 @@ class ReplicaRouter:
             if replica is None:
                 result = RequestResult(
                     req_id=request.req_id,
-                    # reprolint: disable=R3 (host list, not a device array)
+                    # reprolint: disable=R3 # torchlint: disable=T3 (host list)
                     tokens=np.asarray(delivered, np.int32),
                     n_emitted=len(delivered), arrival=0.0, t_admit=0.0,
                     t_finish=0.0, state=REJECTED)

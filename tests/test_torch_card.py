@@ -640,3 +640,17 @@ def test_sequence_split_route_on_card():
         assert r["max_abs_err"] <= 2e-2
         assert r["launches"]["paged_cache_attention"] == n
         assert r["launches"]["sparse_tree_attention_partial"] == 1
+
+
+@pytest.mark.gpu
+def test_capture_budget_on_card():
+    """The capture budget's pinned smoke with real CUDA-graph captures
+    equals ``capture_budget.json`` bucket by bucket: the count the CPU's
+    uncaptured static-buffer step gives (``repro_torch/analysis/
+    capturecount.py``)."""
+    _need_gpu()
+    import json
+    from repro_torch.analysis import capturecount
+    budget = json.loads(capturecount.BUDGET_PATH.read_text())
+    observed = capturecount.run_smoke("cuda")
+    assert capturecount.diff_counts(observed, budget) == {}, observed

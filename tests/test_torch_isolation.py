@@ -252,3 +252,42 @@ def test_reference_scheduler_stays_the_one_model_checked():
             and "class ContinuousScheduler" in p.read_text()]
     assert hits == ["repro/runtime/scheduler.py"]
     assert (PORT / "runtime" / "continuous.py").exists()
+
+
+# the analysis suite: the rules, the model check, the launch bounds and the
+# capture budget
+ANALYSIS_MODULES = sorted(m for m in _modules()
+                          if m.startswith("repro_torch.analysis"))
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_module_imports_alone_with_jax_blocked(module):
+    """Each module of ``repro_torch.analysis`` imports on its own with jax,
+    the reference and triton blocked, and builds nothing."""
+    _imports_alone(module)
+
+
+def test_analysis_suite_runs_stdlib_only():
+    """The lint (every T-rule over the port's tree) and the model check
+    import nothing but the standard library: torch and numpy are blocked
+    too, and of the code under analysis only the launch plans
+    (``kernels/plan.py``, standard library only) that the launch-bounds
+    model evaluates are imported."""
+    assert len(ANALYSIS_MODULES) >= 15
+    code = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'repro', 'triton', 'torch', 'numpy'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.analysis import core, modelcheck\n"
+        f"assert core.lint_paths([{str(PORT)!r}]) == []\n"
+        "assert modelcheck.main(['--max-seconds', '60']) == 0\n"
+        "loaded = sorted(k for k in sys.modules if k.startswith("
+        "'repro_torch.') and not k.startswith('repro_torch.analysis'))\n"
+        "assert loaded == ['repro_torch.kernels', 'repro_torch.kernels.plan'"
+        "], loaded\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
