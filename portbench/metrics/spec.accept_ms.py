@@ -1,0 +1,10 @@
+"""spec.accept_ms: device ms a decode step of the accept walk, between the
+timing events the captured step records at its phase boundaries
+(``core/speculative/verify.py::spec_step``), read after each chunk's host
+transfer for the chunk's last step, mean over the chunks of the traced
+slice."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.phase_ms(ctx, "accept")

@@ -62,7 +62,7 @@ class SpecState:
 
 
 def spec_step(model, params, heads, tree, state: SpecState, *,
-              tree_kernel="dense", active=None):
+              tree_kernel="dense", active=None, marks=None):
     """One Ghidorah speculative decoding step, batched over sequences.
 
     Each sequence accepts its own chain length; the commit is a per-sequence
@@ -73,13 +73,26 @@ def spec_step(model, params, heads, tree, state: SpecState, *,
     ``active (B,) bool`` freezes the rows where it is False: their
     acceptance count is forced to 0 (nothing committed, ``pos`` does not
     advance) and their carry (``cur_token``/``hidden``) is left untouched.
+
+    ``marks`` (``runtime.trace.PhaseMarks``, given by the captured step)
+    records a timing event at each phase boundary: start, after the draft,
+    after the verify forward, after the accept walk, after the commit and
+    emit.
     """
     cfg = model.cfg
+    if marks is not None:
+        marks.at(0)
     cands, _ = draft_candidates(cfg, heads, state.hidden, cfg.medusa_top_k)
     tree_tokens = expand_tree_tokens(tree, state.cur_token, cands)
+    if marks is not None:
+        marks.at(1)
     logits, extras = model.verify(params, state.cache, tree_tokens, tree,
                                   tree_kernel=tree_kernel)
+    if marks is not None:
+        marks.at(2)
     acc = accept_walk(tree, tree_tokens, logits)
+    if marks is not None:
+        marks.at(3)
 
     n_accept = acc["n_accept"]
     if active is not None:
@@ -107,6 +120,8 @@ def spec_step(model, params, heads, tree, state: SpecState, *,
     n_all = acc["n_accept"][:, None]
     emitted = torch.where(idx < n_all - 1, child_shift, 0)
     emitted = torch.where(idx == n_all - 1, acc["bonus"][:, None], emitted)
+    if marks is not None:
+        marks.at(4)
     return new_state, emitted, n_accept
 
 

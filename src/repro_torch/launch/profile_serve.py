@@ -20,6 +20,18 @@ two read side by side.  The warm-up run on the engine means the profiled
 graphed run has no eager warm-up chunk; its own prefill still brings new
 K/V, so it captures once more (``capture_s`` in the report).
 
+The profiler turns the port's tracer on (``runtime/trace.py``): beside the
+device classes the report gives the host time by span (calls, wall ms,
+thread CPU ms, which some hosts count in 10 ms steps) and the device's
+idle time under each span (the innermost span covering it), the device
+activities placed on the spans' clock by the tracer's clock anchor.  It
+also checks that clock against each decode chunk's ``engine.chunk.wait``
+span, which the chunk's last kernel (when the device is still busy as
+the host starts waiting) and its device-to-host copy should both end
+inside: the largest distance outside, in us, of each (the profiler's
+copy records can drift from its kernel records, by up to 0.9% of the
+time since the profiler started on the H100; ``PERF.md`` §7).
+
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch vicuna-7b --mode ghidorah --width 8 --batch 4 \\
       --prompt-len 512 --tokens 64 --chunk 8 [--paged --kv-dtype int8 ...]
@@ -28,6 +40,7 @@ Needs a GPU; it exits non-zero if the profiler records no device activity.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import subprocess
@@ -39,6 +52,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import serve
+from repro_torch.runtime import trace
 from repro_torch.runtime.engine import eager
 
 _CLASSES = (
@@ -97,6 +111,7 @@ def profile_serve(args, loaded) -> dict:
     serve.run(args, loaded, **kw)                        # warm-up
     torch.cuda.synchronize()
     before = eng.graph_stats
+    trace.TRACER.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = serve.run(args, loaded, **kw)
@@ -107,7 +122,91 @@ def profile_serve(args, loaded) -> dict:
                 steps=res["stats"]["device_steps"],
                 pieces=res["stats"].get("extend_pieces", 0),
                 graphs={k: after[k] - before[k] for k in
-                        ("captures", "replays", "capture_s")})
+                        ("captures", "replays", "capture_s")},
+                spans=span_summary(prof, trace.snapshot()))
+
+
+def _innermost(spans) -> list:
+    """Disjoint (start, end, name) pieces of time, each named by the
+    innermost span covering it (the one that started last)."""
+    edges = sorted([(s.t0, 1, i) for i, s in enumerate(spans)]
+                   + [(s.t1, 0, i) for i, s in enumerate(spans)])
+    open_, out, last = set(), [], None
+    for t, starts, i in edges:
+        if open_ and t > last:
+            j = max(open_, key=lambda j: (spans[j].t0, -spans[j].t1))
+            out.append((last, t, spans[j].name))
+        (open_.add if starts else open_.discard)(i)
+        last = t
+    return out
+
+
+def span_summary(prof, snap) -> dict:
+    """The tracer's records of a profiled run: by span name its calls,
+    wall ms and thread CPU ms (``host``), and the device idle ms under it
+    (``idle``, over the spans' extent, the device activities placed by the
+    tracer's anchor); ``kernel_us`` and ``copy_us``, the largest distance
+    (us) by which a decode chunk's last kernel and its device-to-host copy
+    end outside the chunk's ``engine.chunk.wait`` span, and ``chunks``,
+    the chunks checked (None when the activities cannot be placed)."""
+    spans = snap["spans"]
+    host = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    for s in spans:
+        h = host[s.name]
+        h[0] += 1
+        h[1] += (s.t1 - s.t0) / 1e6
+        h[2] += s.cpu / 1e6
+    out = dict(host=dict(host), idle={}, kernel_us=None, copy_us=None,
+               chunks=0, dropped=snap["dropped"])
+    dev = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    if not spans or not dev:
+        return out
+    off = trace.to_span_clock(snap["anchors"][-1], dev[0][1])
+    if off is None:
+        return out
+    t0, t1 = min(s.t0 for s in spans), max(s.t1 for s in spans)
+    busy, at, idle = [], t0, collections.Counter()
+    for _, start, d in sorted(dev, key=lambda e: e[1]):
+        a, b = start + off, start + off + d
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    gaps = []
+    for a, b in busy:
+        if a > at:
+            gaps.append((at, min(a, t1)))
+        at = max(at, b)
+    gaps.append((at, t1))
+    pieces, i = _innermost(spans), 0
+    for a, b in gaps:
+        while i < len(pieces) and pieces[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(pieces) and pieces[j][0] < b:
+            pa, pb, name = pieces[j]
+            idle[name] += max(0, min(b, pb) - max(a, pa)) / 1e6
+            j += 1
+    out["idle"] = dict(idle)
+    copies = sorted(start + off + d for name, start, d in dev
+                    if "DtoH" in name)
+    kernels = sorted(start + off + d for name, start, d in dev
+                     if "Memcpy" not in name)
+    worst = dict(kernel_us=0.0, copy_us=0.0)
+    for w in (s for s in spans if s.name == "engine.chunk.wait"):
+        # the chunk's last kernel: the last to end before the host left
+        # the wait; its copy: the first to end after the host asked for it
+        i = bisect.bisect_right(kernels, w.t1 + 20_000) - 1
+        j = bisect.bisect_left(copies, w.t0 - 20_000)
+        for key, e in (("kernel_us", kernels[i] if i >= 0 else None),
+                       ("copy_us", copies[j] if j < len(copies) else None)):
+            if e is not None:
+                worst[key] = max(worst[key], w.t0 - e, e - w.t1, 0)
+        out["chunks"] += 1
+    out.update({k: v / 1e3 for k, v in worst.items()})
+    return out
 
 
 def device_summary(prof, wall_us) -> dict:
@@ -162,6 +261,17 @@ def report(label, r):
     for name, ms in top:
         print(f"[profile] {label}: kernel {ms:9.3f} ms "
               f"x{r['count'][name]:6d} {name[:100]}", flush=True)
+    sp = r["spans"]
+    for name, (n, wall, cpu) in sorted(sp["host"].items(),
+                                       key=lambda kv: -kv[1][1]):
+        print(f"[profile] {label}: span {name}: {n} calls, {wall:.2f} ms "
+              f"on the host ({cpu:.2f} ms of thread CPU), device idle "
+              f"under it {sp['idle'].get(name, 0.0):.2f} ms", flush=True)
+    print(f"[profile] {label}: tracer clock: over {sp['chunks']} chunks, "
+          f"the last kernel ends at most {sp['kernel_us']} us and the "
+          f"device-to-host copy at most {sp['copy_us']} us outside the "
+          f"chunk's engine.chunk.wait span; {sp['dropped']} records "
+          f"dropped", flush=True)
 
 
 def main(argv=None):

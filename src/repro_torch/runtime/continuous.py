@@ -179,13 +179,15 @@ grouped into fixed batches in arrival order, each batch runs to completion
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.runtime import trace
 from repro_torch.runtime.engine import _eos_scalar, _pow2_chunk
 
 # ---- request lifecycle states --------------------------------------------
@@ -198,6 +200,9 @@ TIMED_OUT = "TIMED_OUT"      # per-request deadline expired at a boundary
 FAILED = "FAILED"            # replica/engine fault while in flight
 REJECTED = "REJECTED"        # shed by backpressure before ever running
 TERMINAL_STATES = frozenset({DONE, CANCELLED, TIMED_OUT, FAILED, REJECTED})
+# the newest lifecycle events a stream keeps (``ContinuousScheduler.events``:
+# two or three a request and one a prefill piece)
+EVENTS_KEPT = 4096
 
 
 @dataclasses.dataclass
@@ -622,9 +627,10 @@ class ContinuousScheduler:
             self._strategy_table = engine.register_strategies(
                 {w: s.tree for w, s in self.adaptive.strategies.items()})
         self.faults = faults
-        # introspection for tests / debugging, populated by serve()
+        # introspection for tests / debugging, populated by serve() and the
+        # stepping core: the stream's newest ``EVENTS_KEPT`` events
         self.last_state = None
-        self.events: List[tuple] = []
+        self.events: Deque[tuple] = collections.deque(maxlen=EVENTS_KEPT)
         # streaming-core state (armed by start(); empty defaults so load /
         # has_work are safe to read before a stream begins)
         self._pending: List[Request] = []
@@ -688,7 +694,7 @@ class ContinuousScheduler:
         self._results = {}
         self._state_of = {r.req_id: QUEUED for r in self._pending}
         self._aborts = {}
-        self.events = []
+        self.events = collections.deque(maxlen=EVENTS_KEPT)
         self._max_resident = 0
         self._n_chunks = 0
         self._n_steps = 0                 # decode steps run on the device
@@ -797,7 +803,8 @@ class ContinuousScheduler:
             # stalls sleep here; an injected crash raises out of boundary()
             self.faults.on_boundary(self._boundary_i)
         # ---- cancels / expired deadlines take effect at the boundary ----
-        self._apply_aborts(self.now(), emitted, finished)
+        with trace.span("sched.aborts"):
+            self._apply_aborts(self.now(), emitted, finished)
 
         def can_admit(r):
             return eng.sched_can_admit(len(r.tokens), r.n_tokens)
@@ -806,96 +813,98 @@ class ContinuousScheduler:
             return eng.sched_footprint(len(r.tokens), r.n_tokens)
 
         # ---- advance chunked prefills: one piece per row/boundary ----
-        for b in range(B):
-            s = slots[b]
-            if s is None or s.get("pending") is None:
-                continue
-            rest = s["pending"]
-            piece = rest[:C]
-            padded = np.zeros((1, C), np.int32)
-            padded[0, :len(piece)] = piece
-            self._dev, last = eng.sched_extend(self._dev, b, padded,
-                                               len(piece))
-            self._n_pieces += 1
-            self.events.append(("extend", s["req"].req_id, b))
-            if len(rest) > C:
-                s["pending"] = rest[C:]
-            else:                     # last piece: the row goes LIVE
-                s["pending"] = None
-                s["out"] = [last]     # unsynced device scalar, like
-                done_np[b] = (eos is not None  # an admission's `first`
-                              and int(last) == eos_val)
-                rem_np[b] = max(s["req"].n_tokens - 1, 0)
-                self._state_of[s["req"].req_id] = DECODING
-                self.events.append(("prefill_done", s["req"].req_id, b))
+        with trace.span("sched.pieces"):
+            for b in range(B):
+                s = slots[b]
+                if s is None or s.get("pending") is None:
+                    continue
+                rest = s["pending"]
+                piece = rest[:C]
+                padded = np.zeros((1, C), np.int32)
+                padded[0, :len(piece)] = piece
+                self._dev, last = eng.sched_extend(self._dev, b, padded,
+                                                   len(piece))
+                self._n_pieces += 1
+                self.events.append(("extend", s["req"].req_id, b))
+                if len(rest) > C:
+                    s["pending"] = rest[C:]
+                else:                     # last piece: the row goes LIVE
+                    s["pending"] = None
+                    s["out"] = [last]     # unsynced device scalar, like
+                    done_np[b] = (eos is not None  # an admission's `first`
+                                  and int(last) == eos_val)
+                    rem_np[b] = max(s["req"].n_tokens - 1, 0)
+                    self._state_of[s["req"].req_id] = DECODING
+                    self.events.append(("prefill_done", s["req"].req_id, b))
 
         # ---- admit arrived requests into free rows (policy order) ----
-        # ONE arrival cutoff for the whole boundary: pick and the
-        # aging filter below must agree on who was visible, or a
-        # request arriving mid-dispatch would be aged (and promoted)
-        # without ever having been passed over
-        t_bound = self.now()
-        admitted_n, free_rows = 0, False
-        # injected admission-time pool exhaustion: defer everything this
-        # boundary, exactly like a real exhausted pool would
-        blocked = (self.faults is not None and bool(self._pending)
-                   and self.faults.block_admission())
-        if blocked:
-            free_rows = any(s is None for s in slots)
-        for b in range(B):
-            if blocked or slots[b] is not None or not self._pending:
-                continue
-            idx = self.policy.pick(self._pending, t_bound, can_admit,
-                                   footprint, self._dev is None)
-            if idx is None:           # nothing arrived / nothing the
-                free_rows = True      # pool can fund: leave rows empty
-                break
-            req = self._pending.pop(idx)
-            # req.tokens is a host list: no sync
-            # reprolint: disable=R3 # torchlint: disable=T3 (a host list)
-            prompt_np = np.asarray(req.tokens, np.int32)
-            S = len(prompt_np)
-            chunked = bool(C) and S > C
-            prompt = (prompt_np[:C] if chunked else prompt_np)[None]
-            if self._dev is None:     # bootstrap the bank once
-                row = eng.sched_prefill({"tokens": prompt})
-                self._dev = eng.sched_blank(row, B)
-                self._dev = eng.sched_insert(self._dev, b, row,
-                                             prompt_len=S,
-                                             n_tokens=req.n_tokens)
-                first = eng.sched_first(row)
-            else:                     # ONE fused prefill+insert dispatch
-                self._dev, first = eng.sched_admit(self._dev, b,
-                                                   {"tokens": prompt},
-                                                   n_tokens=req.n_tokens,
-                                                   reserve_len=S)
-            self._dirty.discard(b)    # insert overwrote the whole row
-            if chunked:               # rest of the prompt lands piece-
-                slots[b] = {"req": req, "out": [], "t": self.now(),
-                            "pending": prompt_np[C:], "flushed": 0}
-                done_np[b] = True     # masked until the last piece
-                rem_np[b] = 0
-                self._state_of[req.req_id] = PREFILLING
-            else:
-                # `first` may be an unsynced device scalar — only force
-                # it when EOS filtering needs the value now
-                slots[b] = {"req": req, "out": [first], "t": self.now(),
-                            "pending": None, "flushed": 0}
-                done_np[b] = eos is not None and int(first) == eos_val
-                rem_np[b] = max(req.n_tokens - 1, 0)
-                self._state_of[req.req_id] = DECODING
-            admitted_n += 1
-            self.events.append(("admit", req.req_id, b))
-        # aging counts boundaries a request was PASSED OVER: another
-        # request was admitted past it, or a free row stayed empty
-        # because its own reservation could not be funded.  Waiting
-        # behind a FULL bank ages nobody — otherwise ordinary
-        # saturation would push every request past age_limit and
-        # permanently degrade SJF/LPT to FIFO.
-        if admitted_n or free_rows:
-            for r in self._pending:
-                if r.arrival <= t_bound:
-                    r.age += 1
+        with trace.span("sched.admit"):
+            # ONE arrival cutoff for the whole boundary: pick and the
+            # aging filter below must agree on who was visible, or a
+            # request arriving mid-dispatch would be aged (and promoted)
+            # without ever having been passed over
+            t_bound = self.now()
+            admitted_n, free_rows = 0, False
+            # injected admission-time pool exhaustion: defer everything this
+            # boundary, exactly like a real exhausted pool would
+            blocked = (self.faults is not None and bool(self._pending)
+                       and self.faults.block_admission())
+            if blocked:
+                free_rows = any(s is None for s in slots)
+            for b in range(B):
+                if blocked or slots[b] is not None or not self._pending:
+                    continue
+                idx = self.policy.pick(self._pending, t_bound, can_admit,
+                                       footprint, self._dev is None)
+                if idx is None:           # nothing arrived / nothing the
+                    free_rows = True      # pool can fund: leave rows empty
+                    break
+                req = self._pending.pop(idx)
+                # req.tokens is a host list: no sync
+                # reprolint: disable=R3 # torchlint: disable=T3 (a host list)
+                prompt_np = np.asarray(req.tokens, np.int32)
+                S = len(prompt_np)
+                chunked = bool(C) and S > C
+                prompt = (prompt_np[:C] if chunked else prompt_np)[None]
+                if self._dev is None:     # bootstrap the bank once
+                    row = eng.sched_prefill({"tokens": prompt})
+                    self._dev = eng.sched_blank(row, B)
+                    self._dev = eng.sched_insert(self._dev, b, row,
+                                                 prompt_len=S,
+                                                 n_tokens=req.n_tokens)
+                    first = eng.sched_first(row)
+                else:                     # ONE fused prefill+insert dispatch
+                    self._dev, first = eng.sched_admit(self._dev, b,
+                                                       {"tokens": prompt},
+                                                       n_tokens=req.n_tokens,
+                                                       reserve_len=S)
+                self._dirty.discard(b)    # insert overwrote the whole row
+                if chunked:               # rest of the prompt lands piece-
+                    slots[b] = {"req": req, "out": [], "t": self.now(),
+                                "pending": prompt_np[C:], "flushed": 0}
+                    done_np[b] = True     # masked until the last piece
+                    rem_np[b] = 0
+                    self._state_of[req.req_id] = PREFILLING
+                else:
+                    # `first` may be an unsynced device scalar — only force
+                    # it when EOS filtering needs the value now
+                    slots[b] = {"req": req, "out": [first], "t": self.now(),
+                                "pending": None, "flushed": 0}
+                    done_np[b] = eos is not None and int(first) == eos_val
+                    rem_np[b] = max(req.n_tokens - 1, 0)
+                    self._state_of[req.req_id] = DECODING
+                admitted_n += 1
+                self.events.append(("admit", req.req_id, b))
+            # aging counts boundaries a request was PASSED OVER: another
+            # request was admitted past it, or a free row stayed empty
+            # because its own reservation could not be funded.  Waiting
+            # behind a FULL bank ages nobody — otherwise ordinary
+            # saturation would push every request past age_limit and
+            # permanently degrade SJF/LPT to FIFO.
+            if admitted_n or free_rows:
+                for r in self._pending:
+                    if r.arrival <= t_bound:
+                        r.age += 1
         if self._dirty and self._dev is not None:
             # rows left empty: one batched reset (clears aborted rows'
             # block tables BEFORE the next chunk can touch freed pages)
@@ -931,34 +940,36 @@ class ContinuousScheduler:
                 self.adaptive.observe(raw[1], eng.strategy.width)
 
         # ---- flush newly available tokens (the streaming boundary) ---
-        _host_firsts(slots)
-        for b in occupied:
-            s = slots[b]
-            if s is None or s["pending"] is not None:
-                continue
-            avail = min(len(s["out"]), s["req"].n_tokens)
-            if avail > s["flushed"]:
-                emitted[s["req"].req_id] = [
-                    int(t) for t in s["out"][s["flushed"]:avail]]
-                s["flushed"] = avail
+        with trace.span("sched.flush"):
+            _host_firsts(slots)
+            for b in occupied:
+                s = slots[b]
+                if s is None or s["pending"] is not None:
+                    continue
+                avail = min(len(s["out"]), s["req"].n_tokens)
+                if avail > s["flushed"]:
+                    emitted[s["req"].req_id] = [
+                        int(t) for t in s["out"][s["flushed"]:avail]]
+                    s["flushed"] = avail
 
         # ---- evict finished rows (EOS / budget / capacity freeze) ----
-        for b in occupied:
-            s = slots[b]
-            if s is None or s["pending"] is not None:
-                continue              # aborted / still prefilling
-            budget = s["req"].n_tokens
-            if not (done_np[b] or rem_np[b] <= 0
-                    or len(s["out"]) >= budget):
-                continue
-            kept = s["out"][:budget]
-            finished.append(self._finalize(s["req"], kept, s["t"], DONE))
-            eng.sched_release(b)      # paged: pages back to the pool NOW
-            self._dirty.add(b)        # reset lazily unless re-admitted
-            slots[b] = None
-            done_np[b] = True
-            rem_np[b] = 0
-            self.events.append(("evict", s["req"].req_id, b))
+        with trace.span("sched.evict"):
+            for b in occupied:
+                s = slots[b]
+                if s is None or s["pending"] is not None:
+                    continue              # aborted / still prefilling
+                budget = s["req"].n_tokens
+                if not (done_np[b] or rem_np[b] <= 0
+                        or len(s["out"]) >= budget):
+                    continue
+                kept = s["out"][:budget]
+                finished.append(self._finalize(s["req"], kept, s["t"], DONE))
+                eng.sched_release(b)      # paged: pages back to the pool NOW
+                self._dirty.add(b)        # reset lazily unless re-admitted
+                slots[b] = None
+                done_np[b] = True
+                rem_np[b] = 0
+                self.events.append(("evict", s["req"].req_id, b))
 
         # ---- adaptive: re-decide the decode strategy at the boundary -
         if self.adaptive is not None and live:
@@ -1052,7 +1063,8 @@ class ContinuousScheduler:
         outputs as the pre-stepping scheduler (fuzz-pinned)."""
         self.start(requests, eos=eos)
         while self.has_work:
-            report = self.boundary()
+            with trace.span("sched.boundary"):
+                report = self.boundary()
             if report.idle:
                 if not self._pending:
                     break

@@ -92,6 +92,7 @@ import torch
 from repro_torch.core.speculative.tree import Tree, TreeSpec, chain_spec
 from repro_torch.core.speculative.verify import (SpecState, spec_prefill,
                                                  spec_step)
+from repro_torch.runtime import trace
 from repro_torch.runtime.cache import (PageAllocator, _set_row,
                                       blank_paged_rows, capacity_left,
                                       insert_rows, pages_for, paginate_cache,
@@ -245,7 +246,8 @@ def _reset_state_rows(state, mask):
                      hidden=hid)
 
 
-def _extend_row(model, params, state, b, tokens, n_valid, tree):
+def _extend_row(model, params, state, b, tokens, n_valid, tree,
+                sp=trace.NOOP):
     """Chunked-prefill piece: run ``tokens (1, C)`` through the causal
     verify path (``tree`` = chain spec: plain causal attention at the row's
     offset) against row ``b``'s cache view and splice the piece's KVs in.
@@ -253,17 +255,21 @@ def _extend_row(model, params, state, b, tokens, n_valid, tree):
     switch, so on the card the piece runs through the verify kernel at
     W = C.  The drafting carry (``cur_token``/``hidden`` when present)
     tracks the last REAL position, so the final piece leaves the row
-    exactly as a whole-prompt admission would."""
+    exactly as a whole-prompt admission would.  ``sp``, the caller's span,
+    marks the device time between the forward and the splice."""
     row_view = slice_row(state.cache, b)
-    logits, extras = model.verify(params, row_view, tokens, tree)
-    k1, v1 = extras["tree_kv"]                       # (L, 1, C, Hkv, hd)
-    cache = write_row_at(state.cache, b, k1[:, 0], v1[:, 0],
-                         row_view.kv.pos[0], n_valid)
-    last = greedy(logits[0, n_valid - 1])
-    hid = None if state.hidden is None else \
-        _set_row(state.hidden, b, extras["hidden"][0, n_valid - 1])
-    return SpecState(cache=cache, cur_token=_set_row(state.cur_token, b, last),
-                     hidden=hid), last
+    with trace.span("engine.extend.forward"):
+        logits, extras = model.verify(params, row_view, tokens, tree)
+    sp.mark()
+    with trace.span("engine.extend.splice"):
+        k1, v1 = extras["tree_kv"]                   # (L, 1, C, Hkv, hd)
+        cache = write_row_at(state.cache, b, k1[:, 0], v1[:, 0],
+                             row_view.kv.pos[0], n_valid)
+        last = greedy(logits[0, n_valid - 1])
+        hid = None if state.hidden is None else \
+            _set_row(state.hidden, b, extras["hidden"][0, n_valid - 1])
+        cur = _set_row(state.cur_token, b, last)
+    return SpecState(cache=cache, cur_token=cur, hidden=hid), last
 
 
 def _seq_step(model, params, state, *, active):
@@ -295,11 +301,12 @@ def _seq_step(model, params, state, *, active):
 
 
 def _decode_step(model, params, heads, strategy, state, done, rem, eos_val,
-                 tree_kernel):
+                 tree_kernel, marks=None):
     """One decode step, the body of the reference's scan (and the step
     ``runtime/graphs.py`` captures).  ``eos_val`` is an int or a 0-d
-    tensor.  Returns (state, done, rem, emitted (B, Dmax) eos-padded, n
-    (B,) emitted count)."""
+    tensor; ``marks`` goes to ``spec_step`` (the captured drafted step's
+    phase events).  Returns (state, done, rem, emitted (B, Dmax)
+    eos-padded, n (B,) emitted count)."""
     # capacity guard BEFORE the step: a commit may write up to max_depth
     # slots (1 for sequential), so freeze once the ring cannot take a
     # worst case without wrapping
@@ -311,7 +318,7 @@ def _decode_step(model, params, heads, strategy, state, done, rem, eos_val,
     else:
         state, emitted, n = spec_step(model, params, heads, strategy.tree,
                                       state, tree_kernel=tree_kernel,
-                                      active=active)
+                                      active=active, marks=marks)
     idx = torch.arange(emitted.shape[1], device=emitted.device)[None]
     valid = idx < n[:, None]
     is_eos = valid & (emitted == eos_val)
@@ -438,7 +445,8 @@ class _PagedPoolMixin:
         device-side table is cleared by the boundary's reset/insert before
         the next chunk runs)."""
         if self.paged and self._alloc is not None:
-            self._alloc.free(self._row_pages.pop(b, ()))
+            with trace.span("engine.release"):
+                self._alloc.free(self._row_pages.pop(b, ()))
 
     def sched_abort(self, b: int) -> None:
         """Release a LIVE, unfinished row mid-flight (cancellation, expired
@@ -492,10 +500,12 @@ class _PagedPoolMixin:
         if C not in self._extend_trees:
             self._extend_trees[C] = Tree.from_spec(chain_spec(C),
                                                    self.device)
-        return _extend_row(self.model, self.params, state, int(b),
-                           torch.as_tensor(tokens, dtype=torch.int32,
-                                           device=self.device),
-                           int(n_valid), self._extend_trees[C])
+        with trace.span("engine.extend", rows=1, tokens=int(n_valid),
+                        device=self.device) as sp:
+            return _extend_row(self.model, self.params, state, int(b),
+                               torch.as_tensor(tokens, dtype=torch.int32,
+                                               device=self.device),
+                               int(n_valid), self._extend_trees[C], sp)
 
 
 class DecodeEngine(_PagedPoolMixin):
@@ -710,14 +720,14 @@ class DecodeEngine(_PagedPoolMixin):
         rem, toks (K, B, Dmax) eos-padded, ns (K, B) emitted counts)."""
         graphed = self._graphed and not _EAGER.depth
         if self.hcmp == "overlap" and strategy.draft == "medusa":
-            self._graphs.last = "eager"
+            self._graphs.last, self._graphs.marks = "eager", None
             return self._hcmp().run_chunk(
                 self.params, strategy, state, done, rem, K, eos_val,
                 self._bank_epoch, graphs=self._graphs if graphed else None)
         if graphed:
             return self._graphs.run(K, strategy, state, done, rem, eos_val,
                                     self.tree_kernel, self._eager_chunk)
-        self._graphs.last = "eager"
+        self._graphs.last, self._graphs.marks = "eager", None
         return self._eager_chunk(K, strategy, state, done, rem, eos_val)
 
     # ---- batch generation ------------------------------------------------
@@ -762,14 +772,18 @@ class DecodeEngine(_PagedPoolMixin):
             need = int(rem_np[~done_np & (rem_np > 0)].max())
             k = _pow2_chunk(K, need)
             t0 = time.perf_counter()
-            state, done, rem, toks, ns = self._run_chunk(
-                k, self.strategy, state, done, rem, eos_val)
-            # ONE host sync per chunk: tokens, counts, done and budgets
-            # travel in one transfer
-            D = toks.shape[2]
-            host = torch.cat([toks.reshape(-1), ns.reshape(-1),
-                              done.to(torch.int64), rem.to(torch.int64)])
-            host = host.cpu().numpy()  # torchlint: disable=T3 (the sync)
+            with trace.span("engine.chunk", rows=B, k=k):
+                state, done, rem, toks, ns = self._run_chunk(
+                    k, self.strategy, state, done, rem, eos_val)
+                # ONE host sync per chunk: tokens, counts, done and
+                # budgets travel in one transfer
+                D = toks.shape[2]
+                host = torch.cat([toks.reshape(-1), ns.reshape(-1),
+                                  done.to(torch.int64), rem.to(torch.int64)])
+                with trace.span("engine.chunk.wait"):
+                    # torchlint: disable=T3 (the sync)
+                    host = host.cpu().numpy()
+                trace.after_transfer(self._graphs.marks)
             times.append(time.perf_counter() - t0)
             device_steps += k
             if self._graphs.last == "replay":
@@ -893,6 +907,12 @@ class DecodeEngine(_PagedPoolMixin):
     def sched_prefill(self, batch):
         """B=1 prefill -> opaque row state.  Paged engines prefill at
         prompt size (the dense row is a splice source, not a resident)."""
+        with trace.span("engine.prefill", rows=1, tokens=_prompt_len(batch),
+                        device=self.device):
+            with trace.span("engine.prefill.forward"):
+                return self._prefill_row(batch)
+
+    def _prefill_row(self, batch):
         if self.paged:
             return _prefill_state(self.model, self.params, self.heads,
                                   self._batch(batch), max_len=1, window=0)
@@ -946,29 +966,41 @@ class DecodeEngine(_PagedPoolMixin):
             plen = reserve_len if reserve_len is not None \
                 else _prompt_len(batch)
             pages = self._sched_pages(b, plen, n_tokens)
-        row = self.sched_prefill(batch)
-        return _insert_row(state, int(b), row, pages=pages), row.cur_token[0]
+        with trace.span("engine.prefill", rows=1, tokens=_prompt_len(batch),
+                        device=self.device) as sp:
+            with trace.span("engine.prefill.forward"):
+                row = self._prefill_row(batch)
+            sp.mark()
+            with trace.span("engine.prefill.insert"):
+                state = _insert_row(state, int(b), row, pages=pages)
+        return state, row.cur_token[0]
 
     def sched_reset(self, state, b):
         self._touch_bank()
         mask = np.zeros((int(state.cur_token.shape[0]),), bool)
         mask[b] = True
-        return _reset_state_rows(state, mask)
+        with trace.span("engine.reset", rows=int(mask.sum())):
+            return _reset_state_rows(state, mask)
 
     def sched_step(self, state, done, rem, K, eos_val):
         """One K-step chunk over the bank from the host's ``done``/``rem``.
         The chunk's tokens, counts, done mask and budgets come back in ONE
         device-to-host transfer; returns (state, done, rem, (toks (K, B,
         Dmax), ns (K, B))) with everything but the state as numpy."""
-        state, done, rem, toks, ns = self._run_chunk(
-            K, self.strategy, state,
-            torch.as_tensor(done, dtype=torch.bool, device=self.device),
-            torch.as_tensor(rem, device=self.device), int(eos_val))
-        B, D = toks.shape[1], toks.shape[2]
-        # the boundary's ONE host sync: every value the scheduler reads
-        host = torch.cat([toks.reshape(-1), ns.reshape(-1),
-                          done.to(torch.int64), rem.to(torch.int64)])
-        host = host.cpu().numpy()  # torchlint: disable=T3 (the sync)
+        with trace.span("engine.chunk", rows=len(done), k=int(K)):
+            with trace.span("engine.chunk.h2d"):
+                done = torch.as_tensor(done, dtype=torch.bool,
+                                       device=self.device)
+                rem = torch.as_tensor(rem, device=self.device)
+            state, done, rem, toks, ns = self._run_chunk(
+                K, self.strategy, state, done, rem, int(eos_val))
+            B, D = toks.shape[1], toks.shape[2]
+            # the boundary's ONE host sync: every value the scheduler reads
+            host = torch.cat([toks.reshape(-1), ns.reshape(-1),
+                              done.to(torch.int64), rem.to(torch.int64)])
+            with trace.span("engine.chunk.wait"):
+                host = host.cpu().numpy()  # torchlint: disable=T3 (the sync)
+            trace.after_transfer(self._graphs.marks)
         n = K * B
         return (state, host[n * (D + 1):n * (D + 1) + B] != 0, host[-B:],
                 (host[:n * D].reshape(K, B, D),

@@ -65,6 +65,11 @@ drafted anew when the bank moved (a stale pre-draft is never reused).
 ``ChunkGraphs(..., capture=False)`` runs the same static-buffer step
 without capture, one call a replay: the CPU tests drive the bookkeeping
 through it, the overlap step's included.
+
+Every capture of the inline drafted step holds five timing events at its
+phase boundaries (``trace.PhaseMarks``, handed to the step as ``marks``),
+whether the tracer is on or not; ``ChunkGraphs.marks`` is the latest
+chunk's graph's, for the tracer to read after the chunk's host transfer.
 """
 from __future__ import annotations
 
@@ -79,6 +84,7 @@ import torch
 from repro_torch.core.speculative.tree import Tree
 from repro_torch.core.speculative.verify import SpecState
 from repro_torch.kernels.launch import CaptureTally
+from repro_torch.runtime import trace
 from repro_torch.runtime.cache import (Cache, KVCache, MambaState,
                                       PagedKVCache, XLSTMState)
 
@@ -169,10 +175,12 @@ class StepGraph:
     tree_kernel)`` is the engine's step: it returns ``(state, done, rem,
     emitted (B, D), n (B,))``.  With ``tree_tokens`` it is the overlap
     step, ``step_fn(..., tree_kernel, tree_tokens, out)``, which also
-    returns the next draft, written into ``out``."""
+    returns the next draft, written into ``out``.  ``marks`` (a
+    ``trace.PhaseMarks``) goes to the inline step as its phase events."""
 
     def __init__(self, step_fn: Callable, strategy, state: SpecState, done,
-                 rem, eos_val: int, tree_kernel: str, tree_tokens=None):
+                 rem, eos_val: int, tree_kernel: str, tree_tokens=None,
+                 marks=None):
         cache = state.cache
         self.step_fn, self.tree_kernel = step_fn, tree_kernel
         self.layout = type(cache.kv)
@@ -196,6 +204,7 @@ class StepGraph:
         self.eos_val = int(eos_val)
         self.eos = torch.full((), self.eos_val, dtype=torch.int64, device=dev)
         self.tree_tokens = _clone(tree_tokens)
+        self.marks = marks
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally = CaptureTally()
         self.emitted = self.n = None
@@ -210,7 +219,8 @@ class StepGraph:
         args = (self.strategy, state, self.done, self.rem, self.eos,
                 self.tree_kernel)
         if self.tree_tokens is None:
-            state, done, rem, emitted, n = self.step_fn(*args)
+            kw = {} if self.marks is None else {"marks": self.marks}
+            state, done, rem, emitted, n = self.step_fn(*args, **kw)
         else:
             state, done, rem, emitted, n, _ = self.step_fn(
                 *args, self.tree_tokens, out=self.tree_tokens)
@@ -321,7 +331,9 @@ class ChunkGraphs:
     steps replayed and run as warm-up, the seconds the captures took and
     the memory the device reserved while capturing (``pool_bytes``).
     ``last`` says how the latest chunk ran: "warm-up", "capture" (then
-    replayed), "replay", or "eager" (set by the engine)."""
+    replayed), "replay", or "eager" (set by the engine); ``marks`` is the
+    phase events of the graph it replayed (None when it replayed none or
+    the graph has none)."""
 
     def __init__(self, step_fn: Callable, device, *, capture: bool = True):
         self.step_fn, self.device, self.capture = step_fn, device, capture
@@ -331,6 +343,7 @@ class ChunkGraphs:
         self.stats = dict(captures=0, replays=0, warmup_steps=0,
                           capture_s=0.0, pool_bytes=0)
         self.last: Optional[str] = None
+        self.marks: Optional[trace.PhaseMarks] = None
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -368,14 +381,17 @@ class ChunkGraphs:
 
     def _build(self, step_fn, strategy, state, done, rem, eos_val,
                tree_kernel, tree_tokens):
+        marks = trace.PhaseMarks() if self.capture and \
+            tree_tokens is None and strategy.draft == "medusa" else None
         g = StepGraph(step_fn, strategy, state, done, rem, eos_val,
-                      tree_kernel, tree_tokens)
+                      tree_kernel, tree_tokens, marks)
         if self.capture:
             side = self._side()
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
             try:
-                g.capture(self._pool, side)
+                with trace.span("graphs.capture"):
+                    g.capture(self._pool, side)
             except BaseException:
                 # a pool whose only capture failed dies with it
                 if not self._graphs:
@@ -401,15 +417,17 @@ class ChunkGraphs:
         extra = () if overlap is None else (tree_tokens,)
         key = self.key(strategy, state, done, tree_kernel, partition)
         if key not in self._warm:
-            out = self._warm_up(eager_chunk, K, strategy, state, done, rem,
-                                eos_val, *extra)
+            with trace.span("graphs.warmup", k=K):
+                out = self._warm_up(eager_chunk, K, strategy, state, done,
+                                    rem, eos_val, *extra)
             self._warm.add(key)
             self.stats["warmup_steps"] += K
-            self.last = "warm-up"
+            self.last, self.marks = "warm-up", None
             return out
         g = self._graphs.get(key)
         if g is not None and g.holds(state):
-            g.load(strategy, state, done, rem, eos_val, *extra)
+            with trace.span("engine.chunk.load"):
+                g.load(strategy, state, done, rem, eos_val, *extra)
             self.last = "replay"
         else:
             # the key's old graph (and its adopted K/V) stays alive through
@@ -425,12 +443,14 @@ class ChunkGraphs:
             self.last = "capture"
         toks = ns = None
         for i in range(K):
-            g.replay()
-            if toks is None:
-                toks = g.emitted.new_empty((K,) + tuple(g.emitted.shape))
-                ns = g.n.new_empty((K,) + tuple(g.n.shape))
-            toks[i].copy_(g.emitted)
-            ns[i].copy_(g.n)
+            with trace.span("engine.chunk.replay"):
+                g.replay()
+                if toks is None:
+                    toks = g.emitted.new_empty((K,) + tuple(g.emitted.shape))
+                    ns = g.n.new_empty((K,) + tuple(g.n.shape))
+                toks[i].copy_(g.emitted)
+                ns[i].copy_(g.n)
+        self.marks = g.marks
         self.stats["replays"] += K
         out = (g.state(), g.done, g.rem, toks, ns)
         return out if overlap is None else out + (g.tree_tokens,)

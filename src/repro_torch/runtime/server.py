@@ -48,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.runtime import trace
 from repro_torch.runtime.continuous import (CANCELLED, FAILED, QUEUED,
                                             REJECTED, ContinuousScheduler,
                                             Request, RequestResult)
@@ -347,7 +348,8 @@ class AsyncEngineServer:
         sched = self.scheduler
         try:
             while True:
-                self._ingest()
+                with trace.span("server.ingest"):
+                    self._ingest()
                 if not sched.has_work:
                     if self._stopping:
                         break
@@ -357,15 +359,19 @@ class AsyncEngineServer:
                     with self._lock:
                         empty = not self._inbox and not self._cancel_box
                     if empty and not self._stopping:
-                        self._work.wait(timeout=0.25)
+                        with trace.span("server.wait"):
+                            self._work.wait(timeout=0.25)
                     continue
-                report = sched.boundary()   # faults stall/crash inside
-                self._publish(report.emitted, report.finished,
-                              boundary=report.boundary)
+                with trace.span("sched.boundary"):
+                    report = sched.boundary()   # faults stall/crash inside
+                with trace.span("server.publish"):
+                    self._publish(report.emitted, report.finished,
+                                  boundary=report.boundary)
                 if report.idle:
                     # resident bank empty but requests queued (injected
                     # pool exhaustion / future arrivals): don't hot-spin
-                    self._work.wait(timeout=self.poll_s)
+                    with trace.span("server.wait"):
+                        self._work.wait(timeout=self.poll_s)
         except BaseException as e:          # noqa: BLE001 — crash path
             self._crashed = e
             failed = sched.fail_all(e)

@@ -403,6 +403,48 @@ def test_overlap_graph_equals_inline_on_card(label):
 
 
 @pytest.mark.gpu
+def test_graphed_step_phase_events_on_card():
+    """The captured inline drafted step records its five phase events in
+    every capture: with the tracer on, each replayed chunk yields four
+    positive phase times (draft, verify, accept, commit) no longer in sum
+    than a chunk; on or off, the same graphs are captured and the tokens
+    are the same."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import trace
+    _need_gpu()
+    args = _overlap_args(["--paged"], "inline")
+    loaded = _loaded(args)
+    batch = {"tokens": serve.prompts(loaded.cfg, args)}
+    outs, graphs = [], []
+    for traced in (False, True):
+        eng = serve.build_engine(args, loaded)
+        trace.TRACER.clear()
+        if traced:
+            trace.enable()
+        try:
+            out, stats = eng.generate(batch, args.tokens)
+        finally:
+            trace.disable()
+        torch.cuda.synchronize()
+        outs.append(out)
+        graphs.append(eng.graph_stats["captures"])
+        assert eng._graphs.marks is not None
+    snap = trace.snapshot()
+    assert graphs[0] == graphs[1] == 1
+    np.testing.assert_array_equal(outs[0], outs[1])
+    chunks = [s for s in snap["spans"] if s.name == "engine.chunk"]
+    replayed = sum(1 for c in chunks if any(
+        r.name == "engine.chunk.replay" and c.t0 <= r.t0 <= r.t1 <= c.t1
+        for r in snap["spans"]))
+    assert replayed > 0 and len(snap["phases"]) == replayed
+    for p in snap["phases"]:
+        ms = (p.draft, p.verify, p.accept, p.commit)
+        assert all(x > 0 for x in ms), p
+        assert sum(ms) < max((c.t1 - c.t0) / 1e6 for c in chunks)
+    assert snap["dropped"] == 0
+
+
+@pytest.mark.gpu
 def test_overlap_capture_two_replica_threads_on_card():
     """Two overlap engines (replicas over one set of weights) capture and
     replay at once from two threads, each with its own draft stream: no
