@@ -7,8 +7,9 @@ Builds, from the parsed ``Project``:
   methods, nested functions, import aliases);
 * the **capture roots**, the functions a CUDA graph records
   (``runtime/graphs.py``): every function called inside a function that
-  calls ``.capture_begin(...)`` (``StepGraph.step``); the step function
-  handed to ``ChunkGraphs(step_fn, ...)`` and the overlap step handed to
+  calls ``.capture_begin(...)`` (``StepGraph.step``, ``PieceGraph.step``);
+  the step function handed to ``ChunkGraphs(step_fn, ...)``, the prefill
+  call handed to ``Piece(fn, ...)`` and the overlap step handed to
   ``.run(..., overlap=(step_fn, tree_tokens))``, seen through
   ``functools.partial(f, ...)`` and through a method that returns one
   (``HcmpOverlapRunner.step_fn`` -> ``overlap_step``);
@@ -32,7 +33,7 @@ from repro_torch.analysis.core import Project, SourceFile
 
 # constructors and calls that take a step function to capture: callee name
 # (last segment) -> positional index of the step function
-CAPTURE_TAKERS = {"ChunkGraphs": 0}
+CAPTURE_TAKERS = {"ChunkGraphs": 0, "Piece": 0}
 # keyword arguments that hand a (step_fn, ...) tuple to a graph runner
 CAPTURE_KEYWORDS = {"overlap"}
 

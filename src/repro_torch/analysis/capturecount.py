@@ -12,9 +12,10 @@ a PINNED smoke (fixed reduced model, fixed request set, every arrival at
 t=0, no deadline: deterministic) and counts the graphs built per named
 captured step, ``ChunkGraphs.stats["captures"]`` split by the graph key's
 partition, draft and tree kernel (``inline/ghidorah/dense``,
-``overlap/ghidorah/dense``, ``inline/sequential/dense``, ...), then diffs
-the counts against the committed ``capture_budget.json``: a count above
-or below its budget fails, with the bucket named.
+``overlap/ghidorah/dense``, ``inline/sequential/dense``, ...) and the
+captured prefill calls by kind (``piece/admit``, ``piece/extend``), then
+diffs the counts against the committed ``capture_budget.json``: a count
+above or below its budget fails, with the bucket named.
 
 The smoke is the reference's (``tracecount.py``) on the port:
 ``qwen2-0.5b`` reduced; a paged scheduler stream with chunked prefill,
@@ -57,25 +58,35 @@ def bucket(strategy, tree_kernel, tree_tokens) -> str:
 @contextlib.contextmanager
 def count_captures():
     """Counts every graph ``ChunkGraphs`` builds (its ``stats["captures"]``)
-    by bucket, in any engine, while entered."""
-    from repro_torch.runtime.graphs import ChunkGraphs
+    by bucket, in any engine, while entered; a captured prefill call
+    (``PieceGraphs``) counts as ``piece/<kind>`` (``admit``, ``extend``)."""
+    from repro_torch.runtime.graphs import ChunkGraphs, PieceGraphs
     counts: Dict[str, int] = {}
     build = ChunkGraphs._build
+    build_piece = PieceGraphs._build
+
+    def tally(stats, before, name):
+        counts[name] = counts.get(name, 0) + stats["captures"] - before
 
     def counted(self, step_fn, strategy, state, done, rem, eos_val,
                 tree_kernel, tree_tokens):
         before = self.stats["captures"]
         g = build(self, step_fn, strategy, state, done, rem, eos_val,
                   tree_kernel, tree_tokens)
-        name = bucket(strategy, tree_kernel, tree_tokens)
-        counts[name] = counts.get(name, 0) + self.stats["captures"] - before
+        tally(self.stats, before, bucket(strategy, tree_kernel, tree_tokens))
         return g
 
-    ChunkGraphs._build = counted
+    def counted_piece(self, key, fn, row, warm):
+        before = self.chunk.stats["captures"]
+        g = build_piece(self, key, fn, row, warm)
+        tally(self.chunk.stats, before, f"piece/{key[0]}")
+        return g
+
+    ChunkGraphs._build, PieceGraphs._build = counted, counted_piece
     try:
         yield counts
     finally:
-        ChunkGraphs._build = build
+        ChunkGraphs._build, PieceGraphs._build = build, build_piece
 
 
 def run_smoke(device: str = "cuda") -> Dict[str, int]:

@@ -122,7 +122,8 @@ def profile_serve(args, loaded) -> dict:
                 steps=res["stats"]["device_steps"],
                 pieces=res["stats"].get("extend_pieces", 0),
                 graphs={k: after[k] - before[k] for k in
-                        ("captures", "replays", "capture_s")},
+                        ("captures", "replays", "capture_s",
+                         "piece_replays", "piece_eager")},
                 spans=span_summary(prof, trace.snapshot()))
 
 
@@ -250,7 +251,9 @@ def report(label, r):
           f"({r['activities'] / max(r['steps'], 1):.0f} per step incl. "
           f"prefill); graphs: {r['graphs']['captures']} captured in "
           f"{r['graphs']['capture_s']:.3f}s, {r['graphs']['replays']} steps "
-          f"replayed; {r['overlap_ms']:.3f} ms of device time with two "
+          f"replayed, {r['graphs']['piece_replays']} prefill calls replayed "
+          f"and {r['graphs']['piece_eager']} run eagerly; "
+          f"{r['overlap_ms']:.3f} ms of device time with two "
           f"activities at once ({r['overlap_ms'] / max(r['steps'], 1):.4f} "
           f"ms a step) over {r['streams']} stream(s)", flush=True)
     busy = max(r["busy_ms"], 1e-9)

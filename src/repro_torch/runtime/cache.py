@@ -619,9 +619,13 @@ def insert_rows(cache: Cache, row: int, src: Cache, *, pages=None) -> Cache:
                             window=kv.window), **state)
 
 
-def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages
-                      ) -> PagedKVCache:
+def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages,
+                      n_valid=None) -> PagedKVCache:
     """Scatter a dense B=1 prefill into ``row``'s fresh page reservation.
+
+    ``n_valid`` (a device scalar), when given, is the prompt's real length
+    in a prefill padded at its end: only positions below it are written
+    (the rest land in the trash page) and the row's ``pos`` is set to it.
 
     Quantized pools un-arm the fresh reservation's scales FIRST, so the
     prompt write re-arms them from the new resident's own amax.  This is
@@ -630,7 +634,10 @@ def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages
     pages = torch.as_tensor(pages, dtype=torch.int32, device=kv.pos.device)
     s_log = kv.max_len
     abs_pos = dkv.key_pos[0]                                  # (S_dense,)
-    valid = (abs_pos >= 0) & (abs_pos >= dkv.pos[0] - s_log)
+    n = dkv.pos[0] if n_valid is None else n_valid
+    valid = (abs_pos >= 0) & (abs_pos >= n - s_log)
+    if n_valid is not None:
+        valid = valid & (abs_pos < n_valid)
     sk, sv = kv.scale_k, kv.scale_v
     if sk is not None:
         every = torch.ones(pages.shape, dtype=torch.bool, device=pages.device)
@@ -645,7 +652,7 @@ def _paged_insert_row(kv: PagedKVCache, row: int, dkv: KVCache, pages
         kv, scale_k=sk, scale_v=sv,
         block_table=_set_row(kv.block_table, row, pages),
         key_pos=_set_row(kv.key_pos, row, kp_row),
-        pos=_set_row(kv.pos, row, dkv.pos[0]))
+        pos=_set_row(kv.pos, row, n))
 
 
 def slice_row(cache: Cache, row: int) -> Cache:

@@ -117,6 +117,9 @@ The resident bank keeps decoding between pieces, so one long prompt no
 longer stalls every resident sequence for a prompt-sized dispatch.  Only
 attention-family engines support it (``engine.sched_chunked_ok``);
 recurrent families and prompts <= N fall back to whole-prompt admission.
+The scheduler hands N to an engine that takes it
+(``engine.sched_piece_width``), which may then replay its admissions and
+pieces from graphs captured at fixed widths.
 
 Adaptive speculation
 --------------------
@@ -611,6 +614,10 @@ class ContinuousScheduler:
         # families silently use whole-prompt admission)
         self.prefill_chunk = prefill_chunk if getattr(
             engine, "sched_chunked_ok", False) else 0
+        # the piece width an engine may capture its prefill calls at
+        piece_width = getattr(engine, "sched_piece_width", None)
+        if piece_width is not None:
+            piece_width(self.prefill_chunk)
         self.adaptive: Optional[AdaptiveSpeculation] = None
         self._strategy_table = {}
         if adaptive is not None:

@@ -65,6 +65,14 @@ static-buffer step without capture (``ChunkGraphs(..., capture=False)``).
 ``measure_acceptance`` reuses one engine across same-shape trees, as in
 the reference.
 
+The captured prefill calls (``runtime/graphs.py::PieceGraphs``): under a
+continuous scheduler with chunked prefill (its piece width C handed over
+by ``sched_piece_width``), an engine on the graph path over a paged float
+pool replays ``sched_admit`` (padded at its end to C/4, C/2 or C) and
+``sched_extend`` (at C) from graphs captured on a static B=1 row, with
+the real length as a device scalar; every other prefill call, the bank's
+bootstrap ``sched_prefill`` included, runs eagerly (``_piece_width``).
+
 HCMP executor split (``hcmp="overlap"``, ``core/hcmp/executors.py``): the
 chunks of a drafted strategy go through the overlap runner, which drafts
 step t+1 on a second stream of the card while step t commits (on the CPU
@@ -93,12 +101,14 @@ from repro_torch.core.speculative.tree import Tree, TreeSpec, chain_spec
 from repro_torch.core.speculative.verify import (SpecState, spec_prefill,
                                                  spec_step)
 from repro_torch.runtime import trace
-from repro_torch.runtime.cache import (PageAllocator, _set_row,
+from repro_torch.runtime.cache import (Cache, PageAllocator, PagedKVCache,
+                                      _paged_insert_row, _set_row,
                                       blank_paged_rows, capacity_left,
                                       insert_rows, pages_for, paginate_cache,
                                       reset_rows, slice_row, tile_rows,
                                       write_row_at)
-from repro_torch.runtime.graphs import ChunkGraphs
+from repro_torch.runtime.graphs import (ChunkGraphs, Piece, PieceGraphs,
+                                       piece_widths)
 from repro_torch.runtime.sampling import greedy
 
 _NO_EOS = -1          # sentinel: no real token id is negative
@@ -246,6 +256,15 @@ def _reset_state_rows(state, mask):
                      hidden=hid)
 
 
+def _at_last(t, n_valid):
+    """``t[0, n_valid - 1]`` of a ``(1, W, ...)`` tensor.  A device-scalar
+    ``n_valid`` is read on the device (0 reads position 0)."""
+    if isinstance(n_valid, int):
+        return t[0, n_valid - 1]
+    at = (n_valid - 1).clamp(min=0).reshape(1).long()
+    return t[0].index_select(0, at)[0]
+
+
 def _extend_row(model, params, state, b, tokens, n_valid, tree,
                 sp=trace.NOOP):
     """Chunked-prefill piece: run ``tokens (1, C)`` through the causal
@@ -255,21 +274,74 @@ def _extend_row(model, params, state, b, tokens, n_valid, tree,
     switch, so on the card the piece runs through the verify kernel at
     W = C.  The drafting carry (``cur_token``/``hidden`` when present)
     tracks the last REAL position, so the final piece leaves the row
-    exactly as a whole-prompt admission would.  ``sp``, the caller's span,
+    exactly as a whole-prompt admission would.  ``n_valid`` is an int or a
+    device scalar (the captured piece's).  ``sp``, the caller's span,
     marks the device time between the forward and the splice."""
-    row_view = slice_row(state.cache, b)
     with trace.span("engine.extend.forward"):
-        logits, extras = model.verify(params, row_view, tokens, tree)
+        row_view, out = _extend_forward(model, params, state, b, tokens,
+                                        tree)
     sp.mark()
     with trace.span("engine.extend.splice"):
-        k1, v1 = extras["tree_kv"]                   # (L, 1, C, Hkv, hd)
-        cache = write_row_at(state.cache, b, k1[:, 0], v1[:, 0],
-                             row_view.kv.pos[0], n_valid)
-        last = greedy(logits[0, n_valid - 1])
-        hid = None if state.hidden is None else \
-            _set_row(state.hidden, b, extras["hidden"][0, n_valid - 1])
-        cur = _set_row(state.cur_token, b, last)
+        return _extend_splice(state, b, row_view, out, n_valid)
+
+
+def _extend_forward(model, params, state, b, tokens, tree):
+    """``_extend_row``'s forward: (row ``b``'s view, (logits, extras))."""
+    row_view = slice_row(state.cache, b)
+    return row_view, model.verify(params, row_view, tokens, tree)
+
+
+def _extend_splice(state, b, row_view, out, n_valid):
+    """``_extend_row``'s splice of the forward's ``out`` into row ``b``."""
+    logits, extras = out
+    k1, v1 = extras["tree_kv"]                       # (L, 1, C, Hkv, hd)
+    cache = write_row_at(state.cache, b, k1[:, 0], v1[:, 0],
+                         row_view.kv.pos[0], n_valid)
+    last = greedy(_at_last(logits, n_valid))
+    hid = None if state.hidden is None else \
+        _set_row(state.hidden, b, _at_last(extras["hidden"], n_valid))
+    cur = _set_row(state.cur_token, b, last)
     return SpecState(cache=cache, cur_token=cur, hidden=hid), last
+
+
+# ---- the captured prefill calls (runtime/graphs.py::PieceGraphs) ---------
+# A piece takes a static B=1 paged row and its int32 input ``inp``: the W
+# tokens, the real length n_valid, and, for an admission, the row's fresh
+# pages.  With n_valid = 0 (the warm-up) every write lands in the trash page.
+def _admit_piece(model, params, heads, W, row, inp):
+    """``_prefill_state`` and the paged ``_insert_row`` of a prompt padded
+    at its end to W tokens.  Causal attention leaves the real positions as
+    the unpadded prompt's: the first token and the hidden carry are read at
+    n_valid - 1, only the first n_valid K/V entries are scattered into the
+    row's pages, and the row's ``pos`` is n_valid."""
+    n_valid = inp[W]
+    logits, extras, dense = model.prefill(params, {"tokens": inp[None, :W]},
+                                          max_len=1, window=0)
+    kv = _paged_insert_row(row.cache.kv, 0, dense.kv, inp[W + 1:],
+                           n_valid=n_valid)
+    hidden = None if heads is None else \
+        _at_last(extras["hidden"], n_valid)[None]
+    return SpecState(cache=Cache(kv=kv),
+                     cur_token=greedy(_at_last(logits, n_valid))[None],
+                     hidden=hidden)
+
+
+def _extend_piece(model, params, tree, W, row, inp):
+    """``_extend_row``'s piece of W tokens (n_valid of them real) at the
+    row's offset."""
+    row_view, out = _extend_forward(model, params, row, 0, inp[None, :W],
+                                    tree)
+    return _extend_splice(row, 0, row_view, out, inp[W])[0]
+
+
+def _host_tokens(tokens):
+    """A prompt's tokens as an int32 numpy array, or None where they lie on
+    a device (reading them would sync)."""
+    if isinstance(tokens, torch.Tensor):
+        if tokens.device.type != "cpu":
+            return None
+        tokens = tokens.numpy()
+    return np.asarray(tokens, np.int32)
 
 
 def _seq_step(model, params, state, *, active):
@@ -479,33 +551,20 @@ class _PagedPoolMixin:
 
     def _sched_pages(self, b: int, prompt_len: int, n_tokens: int):
         """Allocate row ``b``'s reservation (gated by ``sched_can_admit``),
-        padded with -1 to the ``max_pages`` table width, on the device."""
+        padded with -1 to the ``max_pages`` table width, on the host."""
         pages = self._alloc.alloc(self._need_pages(prompt_len, n_tokens,
                                                    self._alloc.n_pages))
         self._row_pages[b] = pages
         out = np.full((self.max_pages,), -1, np.int32)
         out[:len(pages)] = pages
-        return torch.as_tensor(out, device=self.device)
+        return out
 
-    # ---- chunked-prefill hook (runtime/continuous.py prefill_chunk) ------
-    def sched_extend(self, state, b, tokens, n_valid):
-        """One chunked-prefill piece: run ``tokens (1, C)`` (tail pieces
-        right-padded; ``n_valid`` real entries) through the causal verify
-        path against row ``b``'s cache and splice the piece's KVs in at the
-        row's offset.  Returns (state, the last real token as a device
-        scalar: after the final piece it is the request's first
-        emission)."""
-        self._touch_bank()
-        C = int(tokens.shape[1])
+    def _extend_tree(self, C: int) -> Tree:
+        """The chain tree of a chunked-prefill piece of width ``C``."""
         if C not in self._extend_trees:
             self._extend_trees[C] = Tree.from_spec(chain_spec(C),
                                                    self.device)
-        with trace.span("engine.extend", rows=1, tokens=int(n_valid),
-                        device=self.device) as sp:
-            return _extend_row(self.model, self.params, state, int(b),
-                               torch.as_tensor(tokens, dtype=torch.int32,
-                                               device=self.device),
-                               int(n_valid), self._extend_trees[C], sp)
+        return self._extend_trees[C]
 
 
 class DecodeEngine(_PagedPoolMixin):
@@ -562,12 +621,18 @@ class DecodeEngine(_PagedPoolMixin):
             functools.partial(_decode_step, model, params, heads),
             self.device, capture=on_card)
         self._graphed = on_card
+        # the captured prefill calls, at the piece width the scheduler
+        # hands over (``sched_piece_width``; 0: none)
+        self._pieces = PieceGraphs(self._graphs)
+        self._piece_C = 0
 
     @property
     def graph_stats(self) -> dict:
         """The chunk graphs' counters (``runtime/graphs.py``): graphs
-        built, steps replayed, warm-up steps, capture seconds and the
-        memory reserved while capturing."""
+        built (``captures``: step and piece graphs alike), steps replayed,
+        warm-up steps, capture seconds, the memory reserved while
+        capturing, prefill calls replayed from a piece graph and prefill
+        calls run eagerly, and the step graphs held (``graphs``)."""
         return dict(self._graphs.stats, graphs=len(self._graphs))
 
     # ---- paged pool --------------------------------------------------------
@@ -907,8 +972,9 @@ class DecodeEngine(_PagedPoolMixin):
     def sched_prefill(self, batch):
         """B=1 prefill -> opaque row state.  Paged engines prefill at
         prompt size (the dense row is a splice source, not a resident)."""
+        self._graphs.stats["piece_eager"] += 1
         with trace.span("engine.prefill", rows=1, tokens=_prompt_len(batch),
-                        device=self.device):
+                        device=self.device, graphed=0):
             with trace.span("engine.prefill.forward"):
                 return self._prefill_row(batch)
 
@@ -959,21 +1025,121 @@ class DecodeEngine(_PagedPoolMixin):
         device scalar: the scheduler reads it when it needs it).
         ``reserve_len`` overrides the page reservation's prompt length:
         chunked prefill admits only the FIRST piece here but reserves for
-        the whole prompt."""
+        the whole prompt.  Where it engages (``_piece_width``) the
+        admission replays the captured piece of the smallest admission
+        width that holds the prompt, padded at its end."""
         self._touch_bank()
+        S = _prompt_len(batch)
+        toks = _host_tokens(batch["tokens"]) if set(batch) == {"tokens"} \
+            else None
+        W = None if toks is None else self._piece_width(state, "admit", S)
         pages = None
         if self.paged:
-            plen = reserve_len if reserve_len is not None \
-                else _prompt_len(batch)
+            plen = reserve_len if reserve_len is not None else S
             pages = self._sched_pages(b, plen, n_tokens)
-        with trace.span("engine.prefill", rows=1, tokens=_prompt_len(batch),
-                        device=self.device) as sp:
+        with trace.span("engine.prefill", rows=1, tokens=S,
+                        device=self.device, graphed=int(W is not None)) as sp:
+            if W is not None:
+                self._build_pieces(state)
+                inp = np.zeros((W + 1 + self.max_pages,), np.int32)
+                inp[:S] = toks[0]
+                inp[W] = S
+                inp[W + 1:] = pages
+                with trace.span("engine.prefill.forward"):
+                    self._pieces.replay(("admit", W), state, int(b), inp)
+                sp.mark()
+                with trace.span("engine.prefill.insert"):
+                    return self._pieces.store(("admit", W), state, int(b))
+            self._graphs.stats["piece_eager"] += 1
             with trace.span("engine.prefill.forward"):
                 row = self._prefill_row(batch)
             sp.mark()
             with trace.span("engine.prefill.insert"):
                 state = _insert_row(state, int(b), row, pages=pages)
         return state, row.cur_token[0]
+
+    def sched_extend(self, state, b, tokens, n_valid):
+        """One chunked-prefill piece: run ``tokens (1, C)`` (tail pieces
+        right-padded; ``n_valid`` real entries) through the causal verify
+        path against row ``b``'s cache and splice the piece's KVs in at the
+        row's offset.  Returns (state, the last real token as a device
+        scalar: after the final piece it is the request's first
+        emission).  Where it engages (``_piece_width``) the piece replays
+        its captured graph."""
+        self._touch_bank()
+        C = int(tokens.shape[1])
+        toks = _host_tokens(tokens)
+        W = None if toks is None else self._piece_width(state, "extend", C)
+        with trace.span("engine.extend", rows=1, tokens=int(n_valid),
+                        device=self.device, graphed=int(W is not None)) as sp:
+            if W is not None:
+                self._build_pieces(state)
+                inp = np.append(toks[0], np.int32(n_valid))
+                with trace.span("engine.extend.forward"):
+                    self._pieces.replay(("extend", W), state, int(b), inp)
+                sp.mark()
+                with trace.span("engine.extend.splice"):
+                    return self._pieces.store(("extend", W), state, int(b))
+            self._graphs.stats["piece_eager"] += 1
+            return _extend_row(self.model, self.params, state, int(b),
+                               torch.as_tensor(tokens, dtype=torch.int32,
+                                               device=self.device),
+                               int(n_valid), self._extend_tree(C), sp)
+
+    # ---- the captured prefill calls (runtime/graphs.py::PieceGraphs) -----
+    def sched_piece_width(self, C: int) -> None:
+        """The scheduler's prefill piece width ``C`` (0: whole-prompt
+        admission): the width of the captured chunked-prefill piece, and
+        the largest captured admission."""
+        self._piece_C = int(C)
+
+    def _piece_width(self, state, kind: str, S: int) -> Optional[int]:
+        """The width of the captured piece that lands a prefill call of
+        ``S`` tokens (``kind`` "admit" or "extend"), or None where the call
+        runs eagerly.  It engages on the graph path (not inside ``eager()``),
+        for a chunked-prefill engine over a paged float pool (an int8
+        pool's page scales arm at piece boundaries), under a scheduler
+        piece width C: a piece of width C, an admission of at most C
+        tokens.  An admission pads to the smallest admission width that
+        holds it, except where the model routes tokens to experts: an
+        expert's capacity grows with the tokens routed together, so
+        padding would change which choices drop, and such an admission
+        engages only at a width's exact size."""
+        C = self._piece_C
+        kv = state.cache.kv
+        if not (C and self._graphed and not _EAGER.depth
+                and self.sched_chunked_ok and isinstance(kv, PagedKVCache)
+                and not kv.quantized):
+            return None
+        if kind == "extend":
+            W = C if S == C else None
+        else:
+            W = next((w for w in piece_widths(C) if S <= w), None)
+            if W is not None and W != S and self.model.cfg.num_experts:
+                W = None
+        return W
+
+    def _build_pieces(self, state) -> None:
+        """Every piece of the piece width, on ``state``'s pool, unless they
+        are built: at the first call that engages, and again after a new
+        bank or width."""
+        if not self._pieces.ready(state, self._piece_C):
+            self._pieces.build(self._piece_fns(self._piece_C), state,
+                               self._piece_C)
+
+    def _piece_fns(self, C: int) -> dict:
+        """Every piece of piece width ``C``: {(kind, width): ``Piece``}."""
+        model, params = self.model, self.params
+        out = {}
+        for w in piece_widths(C):
+            warm = np.zeros((w + 1 + self.max_pages,), np.int32)
+            warm[w + 1:] = -1                  # no pages
+            out[("admit", w)] = Piece(functools.partial(
+                _admit_piece, model, params, self.heads, w), warm)
+        out[("extend", C)] = Piece(functools.partial(
+            _extend_piece, model, params, self._extend_tree(C), C),
+            np.zeros((C + 1,), np.int32))
+        return out
 
     def sched_reset(self, state, b):
         self._touch_bank()

@@ -70,14 +70,36 @@ Every capture of the inline drafted step holds five timing events at its
 phase boundaries (``trace.PhaseMarks``, handed to the step as ``marks``),
 whether the tracer is on or not; ``ChunkGraphs.marks`` is the latest
 chunk's graph's, for the tracer to read after the chunk's host transfer.
+
+Prompt prefill (``PieceGraphs``): the continuous scheduler's admission
+prefill and its chunked-prefill pieces, captured at fixed widths (the
+admission at C/4, C/2 and C, the piece at C, for the scheduler's piece
+width C) on a static B=1 row, so a prompt is landed by one replay instead
+of a few thousand launches.  A piece graph adopts the bank's page pool,
+which it writes in place, as a step graph does.  The row's small tensors,
+its carry and the piece's int32 input (its tokens, its real length and,
+for an admission, the row's fresh pages) are static buffers: around each
+replay the bank's row is copied into them, the input crosses in one
+host-to-device copy, and the row's new values are copied back out into
+new bank tensors (and the first token into a tensor of its own), so no
+value the caller keeps lives in a buffer that the next replay overwrites.
+One graph serves every row.  All of an engine's pieces are built at its
+first call that engages, each after one eager warm-up with a real length
+of 0 (every write lands in the trash page, nothing of the row moves),
+whose launches stay out of the wrappers' counts; they share the step
+graphs' memory pool and count in ``stats``: ``captures``,
+``piece_replays``, and ``piece_eager``, which the engine counts for the
+prefill calls that stayed eager.  A new pool (a new bank) or a new piece
+width builds them again.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -86,7 +108,8 @@ from repro_torch.core.speculative.verify import SpecState
 from repro_torch.kernels.launch import CaptureTally
 from repro_torch.runtime import trace
 from repro_torch.runtime.cache import (Cache, KVCache, MambaState,
-                                      PagedKVCache, XLSTMState)
+                                      PagedKVCache, XLSTMState, _set_row,
+                                      slice_row)
 
 _TREE = ("depth", "mask", "paths", "node_path", "node_depth", "parent",
          "rank")
@@ -167,6 +190,19 @@ def _with(cache: Cache, tensors: dict) -> Cache:
         pos=tensors["xlstm.pos"])
     return Cache(kv=kv, mamba=mamba, xlstm=xl,
                  **{f: tensors.get(f) for f in _CROSS})
+
+
+@contextlib.contextmanager
+def _gc_held():
+    """The garbage collector held off: a collection that destroyed some
+    other CUDA graph would void a capture."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
 
 
 class StepGraph:
@@ -288,27 +324,20 @@ class StepGraph:
     def capture(self, pool, stream) -> None:
         """Capture ``step`` on ``stream`` into ``pool``; its kernel
         launches go into ``self.tally``.  Executes nothing.  The garbage
-        collector is held off meanwhile: a collection that destroyed some
-        other CUDA graph would void the capture."""
+        collector is held off meanwhile."""
         graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with _CAPTURE_LOCK, torch.cuda.stream(stream), self.tally:
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
+        with _gc_held(), _CAPTURE_LOCK, torch.cuda.stream(stream), \
+                self.tally:
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.emitted, self.n = self.step()
+            except BaseException:
                 try:
-                    self.emitted, self.n = self.step()
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass      # the capture is void; the step's error is
-                    raise         # the one to report
-                graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
+                    graph.capture_end()
+                except RuntimeError:
+                    pass          # the capture is void; the step's error is
+                raise             # the one to report
+            graph.capture_end()
         self.graph = graph
 
     def replay(self) -> None:
@@ -341,7 +370,8 @@ class ChunkGraphs:
         self._warm = set()
         self._pool = self._stream = None
         self.stats = dict(captures=0, replays=0, warmup_steps=0,
-                          capture_s=0.0, pool_bytes=0)
+                          capture_s=0.0, pool_bytes=0, piece_replays=0,
+                          piece_eager=0)
         self.last: Optional[str] = None
         self.marks: Optional[trace.PhaseMarks] = None
 
@@ -385,6 +415,12 @@ class ChunkGraphs:
             tree_tokens is None and strategy.draft == "medusa" else None
         g = StepGraph(step_fn, strategy, state, done, rem, eos_val,
                       tree_kernel, tree_tokens, marks)
+        self._capture(g)
+        return g
+
+    def _capture(self, g) -> None:
+        """Capture ``g`` (a step or a piece graph) into the shared pool on
+        the capture stream, and count it."""
         if self.capture:
             side = self._side()
             reserved = torch.cuda.memory_reserved(self.device)
@@ -401,7 +437,6 @@ class ChunkGraphs:
             self.stats["pool_bytes"] += \
                 torch.cuda.memory_reserved(self.device) - reserved
         self.stats["captures"] += 1
-        return g
 
     def run(self, K, strategy, state, done, rem, eos_val, tree_kernel,
             eager_chunk, overlap=None):
@@ -464,3 +499,178 @@ class ChunkGraphs:
                 del self._graphs[key]
             if self.capture and not self._graphs and self._pool is not None:
                 self._pool = torch.cuda.graph_pool_handle()
+
+
+# ===========================================================================
+def piece_widths(C: int) -> tuple:
+    """The admission widths of a scheduler's piece width ``C``: C/4, C/2
+    and C (each at least 1), smallest first."""
+    return tuple(sorted({max(1, C // 4), max(1, C // 2), C}))
+
+
+class Piece(NamedTuple):
+    """A prefill call to capture: ``fn(row, inp)`` (see ``PieceGraph``)
+    and its warm-up input, an int32 numpy array whose real length is 0."""
+    fn: Callable
+    warm: object
+
+
+class PieceGraph:
+    """One prompt-prefill call on a static B=1 paged row, captured (or,
+    without capture, called once a replay).  ``fn(row, inp)`` is the
+    engine's piece: the row's new state (a ``SpecState``) from the row and
+    ``inp``, the piece's int32 input.  The row's pool is adopted; its small
+    tensors, ``cur_token``, ``hidden`` and ``inp`` are static buffers, and
+    the step copies each new value back into its buffer."""
+
+    def __init__(self, fn: Callable, row: SpecState, n_inp: int):
+        cache = row.cache
+        self.fn = fn
+        self.big = _big(cache)
+        self.tensors = {n: t if n in self.big else _clone(t)
+                        for n, t in _tensors(cache).items()}
+        self.cache = _with(cache, self.tensors)
+        self.cur_token = row.cur_token.clone()
+        self.hidden = _clone(row.hidden)
+        self.inp = torch.zeros((n_inp,), dtype=torch.int32,
+                               device=self.cur_token.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tally = CaptureTally()
+
+    def step(self) -> None:
+        """The piece from the static buffers, its results copied back into
+        them."""
+        state = self.fn(SpecState(cache=_with(self.cache, self.tensors),
+                                  cur_token=self.cur_token,
+                                  hidden=self.hidden), self.inp)
+        for name, t in _tensors(state.cache).items():
+            if name in self.big:
+                if t is not self.tensors[name]:
+                    raise RuntimeError(f"the piece rebuilt the cache's "
+                                       f"{name}: its pool must be written "
+                                       f"in place")
+            elif t is not None:
+                _copy_in(self.tensors[name], t, name)
+        _copy_in(self.cur_token, state.cur_token, "cur_token")
+        _copy_in(self.hidden, state.hidden, "hidden")
+
+    def holds(self, state: SpecState) -> bool:
+        """Whether ``state``'s pool is the one this graph adopted."""
+        tensors = _tensors(state.cache)
+        return _big(state.cache) == self.big and all(
+            tensors[n] is self.tensors[n] for n in self.big)
+
+    def capture(self, pool, stream) -> None:
+        """Capture ``step`` on ``stream`` into ``pool``, as
+        ``StepGraph.capture`` does (a method of its own: the method that
+        begins a capture names the function captured, which the analysis
+        suite holds to the capture rules)."""
+        graph = torch.cuda.CUDAGraph()
+        with _gc_held(), _CAPTURE_LOCK, torch.cuda.stream(stream), \
+                self.tally:
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.step()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass          # the capture is void; the step's error is
+                raise             # the one to report
+            graph.capture_end()
+        self.graph = graph
+
+    def replay(self) -> None:
+        if self.graph is None:
+            self.step()
+        else:
+            self.graph.replay()
+        self.tally.replayed()
+
+
+class PieceGraphs:
+    """One engine's captured prefill calls, keyed by (kind, width), in the
+    memory pool of its step graphs (``graphs``, whose ``stats`` count
+    them); see the module docstring."""
+
+    def __init__(self, graphs: ChunkGraphs):
+        self.chunk = graphs
+        self._graphs: Dict[tuple, PieceGraph] = {}
+        self.width = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def ready(self, state: SpecState, width: int) -> bool:
+        """Whether the pieces are built for piece width ``width`` on
+        ``state``'s pool."""
+        g = next(iter(self._graphs.values()), None)
+        return self.width == width and g is not None and g.holds(state)
+
+    def build(self, pieces: dict, state: SpecState, width: int) -> None:
+        """Build every piece of ``pieces`` ({key: ``Piece``}) on
+        ``state``'s pool, each after its warm-up; the old pieces are
+        dropped after the new ones are captured."""
+        row = SpecState(cache=slice_row(state.cache, 0),
+                        cur_token=state.cur_token[:1],
+                        hidden=None if state.hidden is None
+                        else state.hidden[:1])
+        new = {key: self._build(key, fn, row, warm)
+               for key, (fn, warm) in pieces.items()}
+        with _CAPTURE_LOCK:
+            old, self._graphs = self._graphs, new
+            self.width = width
+            del old
+
+    def _build(self, key, fn, row, warm) -> PieceGraph:
+        g = PieceGraph(fn, row, len(warm))
+        g.inp.copy_(torch.from_numpy(warm))
+        # the warm-up writes only the trash page and the static row; its
+        # launches are no prefill call's, so they go to a tally of its own
+        with trace.span("graphs.piece_warmup"), CaptureTally():
+            if self.chunk.capture:
+                side = self.chunk._side()
+                cur = torch.cuda.current_stream(self.chunk.device)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    g.step()
+                cur.wait_stream(side)
+            else:
+                g.step()
+        self.chunk._capture(g)
+        return g
+
+    def replay(self, key, state: SpecState, b: int, inp) -> None:
+        """Copy bank row ``b`` into the piece's static row and ``inp`` (an
+        int32 numpy array) into its input, then replay it."""
+        g = self._graphs[key]
+        bank = _tensors(state.cache)
+        for name, t in g.tensors.items():
+            if name not in g.big and t is not None:
+                t.copy_(bank[name][b:b + 1])
+        g.cur_token.copy_(state.cur_token[b:b + 1])
+        if g.hidden is not None:
+            g.hidden.copy_(state.hidden[b:b + 1])
+        src = torch.from_numpy(inp)
+        if g.inp.is_cuda:
+            src = src.pin_memory()
+        g.inp.copy_(src, non_blocking=True)
+        g.replay()
+        self.chunk.stats["piece_replays"] += 1
+
+    def store(self, key, state: SpecState, b: int):
+        """The bank with row ``b``'s new values copied out of the piece's
+        static row, and the row's token as a device scalar of its own:
+        (state, token)."""
+        g = self._graphs[key]
+        bank = _tensors(state.cache)
+        new = {name: t if name in g.big or t is None
+               else _set_row(t, b, g.tensors[name][0])
+               for name, t in bank.items()}
+        hid = None if g.hidden is None else \
+            _set_row(state.hidden, b, g.hidden[0])
+        return (SpecState(cache=_with(state.cache, new),
+                          cur_token=_set_row(state.cur_token, b,
+                                             g.cur_token[0]),
+                          hidden=hid),
+                g.cur_token[0].clone())

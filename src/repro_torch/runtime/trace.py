@@ -11,8 +11,10 @@ clock is read and nothing is allocated.
 A span record (``SpanRecord``) holds the name, the thread, the start and
 end on ``time.perf_counter_ns`` and the thread's CPU time over the span
 (``time.thread_time_ns``: wall minus CPU is the time the thread was off
-the CPU, waiting on the interpreter lock or preempted), and three integer
-attributes: ``rows``, ``tokens`` and ``k`` (steps).  Spans nest by time
+the CPU, waiting on the interpreter lock or preempted), three integer
+attributes, ``rows``, ``tokens`` and ``k`` (steps), and ``graphed``: on a
+prefill call's span (``engine.prefill``, ``engine.extend``) 1 when a
+captured piece landed its tokens and 0 when it ran eagerly, else None.  Spans nest by time
 within a thread.  Records go to bounded buffers; what does not fit drops
 the oldest and is counted (``snapshot()["dropped"]``).
 
@@ -40,7 +42,8 @@ Names recorded by the serving path (who reads each: ``PERF.md`` §3):
 ``engine.chunk`` (``.h2d``, ``.load``, ``.replay``, ``.wait``),
 ``engine.prefill`` (``.forward``, ``.insert``), ``engine.extend``
 (``.forward``, ``.splice``), ``engine.reset``, ``engine.release``,
-``graphs.warmup``, ``graphs.capture``, ``sched.boundary`` (``sched.aborts``,
+``graphs.warmup``, ``graphs.piece_warmup``, ``graphs.capture``,
+``sched.boundary`` (``sched.aborts``,
 ``sched.pieces``, ``sched.admit``, ``sched.flush``, ``sched.evict``),
 ``server.ingest``, ``server.publish``, ``server.wait``.
 """
@@ -69,6 +72,7 @@ class SpanRecord(NamedTuple):
     rows: int
     tokens: int
     k: int
+    graphed: Optional[int] = None
 
 
 class DeviceRecord(NamedTuple):
@@ -140,13 +144,13 @@ def _event():
 
 
 class Span:
-    __slots__ = ("tracer", "name", "rows", "tokens", "k", "device", "t0",
-                 "c0", "events")
+    __slots__ = ("tracer", "name", "rows", "tokens", "k", "device",
+                 "graphed", "t0", "c0", "events")
 
-    def __init__(self, tracer, name, rows, tokens, k, device):
+    def __init__(self, tracer, name, rows, tokens, k, device, graphed=None):
         self.tracer, self.name = tracer, name
         self.rows, self.tokens, self.k = rows, tokens, k
-        self.device = device
+        self.device, self.graphed = device, graphed
         self.events = None
 
     def __enter__(self):
@@ -170,7 +174,7 @@ class Span:
             pending = (self.name, self.t0, t1, self.tokens, self.events)
         self.tracer._record(SpanRecord(
             self.name, threading.get_ident(), self.t0, t1, cpu, self.rows,
-            self.tokens, self.k), pending)
+            self.tokens, self.k, self.graphed), pending)
         return False
 
 
@@ -266,12 +270,12 @@ TRACER = Tracer()
 
 
 def span(name: str, rows: int = 0, tokens: int = 0, k: int = 0,
-         device=None):
+         device=None, graphed: Optional[int] = None):
     """A context manager timing its block as ``name`` (``NOOP`` while
     off).  With a CUDA ``device`` the span also times its device work."""
     if not (TRACER.forced or _autograd_profiler._is_profiler_enabled):
         return NOOP
-    return Span(TRACER, name, rows, tokens, k, device)
+    return Span(TRACER, name, rows, tokens, k, device, graphed)
 
 
 def after_transfer(marks: Optional[PhaseMarks]) -> None:

@@ -2,9 +2,9 @@
 on the CPU, where the engines run the card's static-buffer step without
 capturing (``ChunkGraphs(..., capture=False)``) and count each graph they
 build as the card does: the pinned smoke meets the committed
-``capture_budget.json`` bucket by bucket, every bucket of the smoke is
-non-empty, and a forced extra capture shows as ``+1`` in its bucket and
-fails the CLI.
+``capture_budget.json`` bucket by bucket (the captured prefill calls
+included), every bucket of the smoke is non-empty, and a forced extra
+capture shows as ``+1`` in its bucket and fails the CLI.
 """
 import json
 
@@ -30,7 +30,8 @@ def test_the_cpu_smoke_meets_the_budget(capsys):
     assert set(budget) == {"inline/sequential/dense",
                            "inline/ghidorah/dense",
                            "inline/ghidorah/sparse",
-                           "overlap/ghidorah/dense"}
+                           "overlap/ghidorah/dense",
+                           "piece/admit", "piece/extend"}
     assert all(n >= 1 for n in observed.values())
     assert cc.main(["--device", "cpu"]) == 0
     assert "OK" in capsys.readouterr().out

@@ -684,6 +684,103 @@ def test_sequence_split_route_on_card():
         assert r["launches"]["sparse_tree_attention_partial"] == 1
 
 
+# the captured prefill calls on the card: piece width, page size, and the
+# prompt lengths admitted in turn (a model with experts replays only at a
+# width's exact size)
+PIECE_C, PIECE_PS = 32, 8
+PIECE_ADMITS = {"qwen2-0.5b-smoke": [1, 8, 9, 16, 17, 32],
+                "qwen3-moe-30b-a3b-smoke": [8, 16, 32]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(PIECE_ADMITS))
+def test_graphed_prefill_pieces_equal_eager_on_card(arch):
+    """Admissions at each width and a chunked prompt's pieces (a full one
+    and a padded tail) replayed from their captured graphs on the card, in
+    bf16, against the same calls inside ``eager()``: each row's table,
+    ``key_pos`` and ``pos`` equal, its pool pages and hidden carry within
+    2e-2 / 3e-2, its first token equal or a bf16 tie of the eager logits;
+    four captures at the first call, then replays only; and every page no
+    row reserved is as it was before the first capture: the warm-ups and
+    the replays write elsewhere only into the trash page."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.speculative import tree as T
+    from repro_torch.core.speculative.medusa import init_medusa
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
+    from repro_torch.runtime.engine import SpeculativeEngine, eager
+    _need_gpu()
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    heads = init_medusa(cfg, torch.Generator(device="cuda").manual_seed(1))
+    spec = T.build_tree(T.default_accs(cfg.medusa_heads, cfg.medusa_top_k),
+                        8)
+    admits = PIECE_ADMITS[arch]
+    n_rows = len(admits) + 2
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, S)).astype(np.int32)
+               for S in [6] + admits + [2 * PIECE_C + 5]]
+
+    def run(eng):
+        eng.sched_piece_width(PIECE_C)
+        row = eng.sched_prefill({"tokens": prompts[0]})
+        bank = eng.sched_blank(row, n_rows)
+        bank = eng.sched_insert(bank, 0, row, prompt_len=6, n_tokens=8)
+        kv = bank.cache.kv
+        pools = (kv.pool_k.clone(), kv.pool_v.clone())
+        firsts, captures = [], []
+        for b, p in enumerate(prompts[1:-1], start=1):
+            bank, first = eng.sched_admit(bank, b, {"tokens": p}, n_tokens=8,
+                                          reserve_len=p.shape[1])
+            firsts.append(first)
+            captures.append(eng.graph_stats["captures"])
+        b, p = n_rows - 1, prompts[-1]
+        bank, first = eng.sched_admit(bank, b, {"tokens": p[:, :PIECE_C]},
+                                      n_tokens=8, reserve_len=p.shape[1])
+        for lo in (PIECE_C, 2 * PIECE_C):
+            n = min(PIECE_C, p.shape[1] - lo)
+            piece = np.zeros((1, PIECE_C), np.int32)
+            piece[0, :n] = p[0, lo:lo + n]
+            bank, first = eng.sched_extend(bank, b, piece, n)
+        firsts.append(first)
+        torch.cuda.synchronize()
+        return bank, pools, [int(f) for f in firsts], captures
+
+    def engine():
+        return SpeculativeEngine(model, heads, params, spec, max_len=128,
+                                 chunk=4, paged=True, page_size=PIECE_PS)
+
+    graphed = engine()
+    gbank, gpools, gfirst, captures = run(graphed)
+    with eager():
+        ebank, _, efirst, _ = run(engine())
+    gs = graphed.graph_stats
+    assert captures == [4] * len(admits) and gs["captures"] == 4, gs
+    assert gs["piece_replays"] == len(admits) + 3 and gs["piece_eager"] == 1
+    gkv, ekv = gbank.cache.kv, ebank.cache.kv
+    for f in ("block_table", "key_pos", "pos"):
+        torch.testing.assert_close(getattr(gkv, f), getattr(ekv, f),
+                                   rtol=0, atol=0)
+    pages = gkv.block_table[gkv.block_table >= 0].long()
+    for g, e in ((gkv.pool_k, ekv.pool_k), (gkv.pool_v, ekv.pool_v)):
+        torch.testing.assert_close(g[:, pages].float(), e[:, pages].float(),
+                                   rtol=3e-2, atol=2e-2)
+    torch.testing.assert_close(gbank.hidden.float(), ebank.hidden.float(),
+                               rtol=3e-2, atol=2e-2)
+    free = torch.ones(gkv.pool_k.shape[1], dtype=torch.bool, device="cuda")
+    free[pages] = False
+    free[-1] = False                                     # the trash page
+    for now, before in zip((gkv.pool_k, gkv.pool_v), gpools):
+        assert torch.equal(now[:, free], before[:, free])
+    logits = transformer._logits(cfg, params, ebank.hidden).float()
+    for b, (g, e) in enumerate(zip(gfirst, efirst), start=1):
+        assert g == int(gbank.cur_token[b])
+        if g != e:                       # a tie at bf16's resolution
+            assert abs(float(logits[b, g] - logits[b, e])) < 5e-2, (b, g, e)
+
+
 @pytest.mark.gpu
 def test_capture_budget_on_card():
     """The capture budget's pinned smoke with real CUDA-graph captures
