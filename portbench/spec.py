@@ -48,21 +48,25 @@ def load_benchmark(root: Path = ROOT) -> dict:
 
 def with_deferred(bench: dict, root: Path = ROOT) -> dict:
     """``bench`` with the deferred cells of ``portbench/deferred.json``
-    added: their configurations and cells, and their metrics (a metric of
-    the same name lists the deferred cells beside its own)."""
+    added: their configurations, cells and metrics.  ``bench`` wins: an
+    entry whose name it already holds keeps its own fields (a bound among
+    them), and a metric of that name lists each deferred cell beside its
+    own, once.  So a later change moves a ready cell in by adding its
+    entries to ``BENCHMARK.json`` alone; dropping them from
+    ``deferred.json`` is then an edit of its own."""
     with open(root / "portbench" / "deferred.json") as f:
         more = json.load(f)
     out = copy.deepcopy(bench)
-    out["configs"] += more["configs"]
-    out["workloads"] += more["workloads"]
-    for group in ("end_to_end", "per_layer"):
-        have = {m["name"]: m for m in out[group]}
-        for m in more[group]:
-            if m["name"] in have:
-                have[m["name"]]["workloads"] = \
-                    have[m["name"]]["workloads"] + m["workloads"]
-            else:
-                out[group].append(m)
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        have = {x["name"]: x for x in out[group]}
+        for x in more[group]:
+            mine = have.get(x["name"])
+            if mine is None:
+                out[group].append(copy.deepcopy(x))
+            elif "workloads" in mine:
+                for w in x.get("workloads", ()):
+                    if w not in mine["workloads"]:
+                        mine["workloads"].append(w)
     return out
 
 

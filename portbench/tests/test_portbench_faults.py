@@ -66,24 +66,39 @@ def test_each_fault_is_not_correct(post):
     assert not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("where", ["verify", "prefill"])
-def test_the_ports_moe_capacity_drops_are_not_correct(where):
-    """The port's MoE keeps at most about 1.25 x its share of a routed
-    group's choices an expert once a group passes 32 tokens; the reference
-    is dropless, as the published model.  A verify over a bank of 16 (128
-    tree tokens a group), or prompt pieces of 64 tokens, drop choices,
-    and the run comes out not correct (``PERF.md``, Open questions)."""
-    cell = "qwen3-moe-30b-a3b.decode"
-    b = testing.bench()
-    cfg, mix = testing.tiny_config(b, cell), testing.tiny_mix(b, cell)
-    if where == "verify":
-        cfg["serve"]["bank"] = mix["clients"] = 16
-    else:
-        cfg["serve"]["prefill_chunk"] = 64
-        mix["prompt"] = dict(mix["prompt"], min=64, max=150, median=96)
-    res = testing.run(cell, cfgfile=cfg, mix=mix)
+def clone(tree):
+    return {k: clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def lost_expert(layer):
+    """Every choice of one expert lost in ``layer``: the down projection
+    of expert 0 zeroed in place in the tensors the program holds, while
+    the reference judges with a clean copy of the weights."""
+    def fault(sys_):
+        clean = clone(sys_.params)
+        sys_.params["layers"]["moe"]["w_down"][layer, 0].zero_()
+        sys_.params = clean
+    return fault
+
+
+# token_mean over its limit at least: the fault read 0.143-0.298 in eight
+# runs (first and last layer) against the tiny size's 1e-3; a sound run
+# reads 0.0
+MARGIN = 20
+
+
+@pytest.mark.parametrize("layer", [0, -1], ids=["first", "last"])
+def test_an_moe_that_loses_an_experts_choices_is_not_correct(layer):
+    """A served MoE that loses expert choices (as a capacity that drops
+    them would) comes out not correct, whatever the port's dispatch does:
+    at the tiny size the port routes without drops, and the fault is
+    planted in the weights it serves."""
+    res = testing.run("qwen3-moe-30b-a3b.decode", fault=lost_expert(layer))
     assert res["attempted"] > 0 and res["failed"] == 0
-    assert not res["correct"], res["checks"]
+    mean = res["checks"]["token_mean"]
+    assert mean["value"] > MARGIN * mean["limit"], res["checks"]
+    assert not res["correct"]
 
 
 @pytest.mark.parametrize("cell", ["mistral-7b.decode",

@@ -1,7 +1,9 @@
 """Cells, mixes, configurations and metrics are found by name from files,
 and BENCHMARK.json keeps to the benchmark's rules."""
+import copy
 import json
 import re
+import shutil
 from pathlib import Path
 
 import pytest
@@ -13,22 +15,104 @@ ALL = testing.bench()          # with the deferred cells
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
-@pytest.mark.parametrize("w", ALL["workloads"], ids=lambda w: w["name"])
-def test_each_cell_finds_its_files(w):
-    cfg = spec.config_file(ALL, w["config"])
-    mix = spec.traffic(w["traffic"])
+MOE_CELL = "qwen3-moe-30b-a3b.decode"
+
+
+def move_in(bench: dict, cell: str) -> dict:
+    """``bench`` with a deferred cell moved in by added entries alone: its
+    configuration and cell, and the cell in ``tok_s``'s workloads (each
+    where ``bench`` lacks it)."""
+    with open(Path(spec.HERE, "deferred.json")) as f:
+        more = json.load(f)
+    out = copy.deepcopy(bench)
+    w = spec.workload(more, cell)
+    if all(x["name"] != cell for x in out["workloads"]):
+        out["workloads"].append(w)
+    if all(c["name"] != w["config"] for c in out["configs"]):
+        out["configs"] += [c for c in more["configs"]
+                           if c["name"] == w["config"]]
+    tok = next(m for m in out["end_to_end"] if m["name"] == "tok_s")
+    if cell not in tok["workloads"]:
+        tok["workloads"].append(cell)
+    return out
+
+
+MOVED = move_in(BENCH, MOE_CELL)
+
+
+@pytest.fixture(scope="module")
+def moved_root(tmp_path_factory):
+    """A root whose BENCHMARK.json holds the MoE cell moved in, beside the
+    benchmark's files with ``deferred.json`` as it is."""
+    root = tmp_path_factory.mktemp("moved")
+    shutil.copytree(spec.HERE, root / "portbench", ignore=shutil.
+                    ignore_patterns("__pycache__", ".cache"))
+    (root / "BENCHMARK.json").write_text(json.dumps(MOVED, indent=2))
+    return root
+
+
+def moved_all(root):
+    return spec.with_deferred(spec.load_benchmark(root), root)
+
+
+def finds_its_files(bench, w, root=spec.ROOT):
+    cfg = spec.config_file(bench, w["config"], root)
+    mix = spec.traffic(w["traffic"], root)
     assert cfg["serve"]["bank"] >= 1 and mix["loop"] in ("closed", "open")
     if mix["loop"] == "closed":
         assert mix["clients"] == cfg["serve"]["bank"]
     for trace in (False, True):
-        ms = spec.metrics_for(ALL, w["name"], trace)
+        ms = spec.metrics_for(bench, w["name"], trace)
         assert ms, (w["name"], trace)
         for m in ms:
-            assert callable(spec.reader(m["name"]).read)
-    e2e = {m["name"] for m in spec.metrics_for(ALL, w["name"], False)}
+            assert callable(spec.reader(m["name"], root).read)
+    e2e = {m["name"] for m in spec.metrics_for(bench, w["name"], False)}
     assert "setup_s" in e2e and len(e2e) >= 2
-    for m in spec.metrics_for(ALL, w["name"], True):
+    for m in spec.metrics_for(bench, w["name"], True):
         assert m["moves"] in e2e, (m["name"], w["name"])
+
+
+@pytest.mark.parametrize("w", ALL["workloads"], ids=lambda w: w["name"])
+def test_each_cell_finds_its_files(w):
+    finds_its_files(ALL, w)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in
+                                  spec.with_deferred(MOVED)["workloads"]])
+def test_each_cell_finds_its_files_once_one_is_moved_in(moved_root, cell):
+    b = moved_all(moved_root)
+    finds_its_files(b, spec.workload(b, cell), moved_root)
+
+
+def test_a_moved_in_cell_joins_without_a_duplicate(moved_root):
+    assert (moved_root / "portbench" / "deferred.json").read_bytes() == \
+        Path(spec.HERE, "deferred.json").read_bytes()
+    b = moved_all(moved_root)
+    for k in ("configs", "workloads", "end_to_end", "per_layer"):
+        names = [x["name"] for x in b[k]]
+        assert len(names) == len(set(names)), (k, names)
+    assert [w["name"] for w in b["workloads"]].count(MOE_CELL) == 1
+    for m in b["end_to_end"] + b["per_layer"]:
+        ws = m.get("workloads", [])
+        assert len(ws) == len(set(ws)), (m["name"], ws)
+        assert set(ws) <= {w["name"] for w in b["workloads"]}, m["name"]
+
+
+def test_the_accepted_entry_wins(moved_root):
+    """A metric in both files keeps BENCHMARK.json's fields: ``tok_s``
+    keeps its bound, not the deferred entry's, and lists the deferred
+    cells beside its own."""
+    with open(Path(spec.HERE, "deferred.json")) as f:
+        deferred = next(m for m in json.load(f)["end_to_end"]
+                        if m["name"] == "tok_s")
+    accepted = next(m for m in BENCH["end_to_end"] if m["name"] == "tok_s")
+    assert accepted["bound"] != deferred["bound"]
+    for b in (ALL, moved_all(moved_root)):
+        tok = next(m for m in b["end_to_end"] if m["name"] == "tok_s")
+        assert tok["bound"] == accepted["bound"]
+        assert "mistral-7b.decode" in tok["workloads"]
+        assert MOE_CELL in tok["workloads"]
+    assert "qwen3-moe-30b-a3b" in {c["name"] for c in ALL["configs"]}
 
 
 def test_names_units_and_keys():
