@@ -146,8 +146,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    graphed run counted through the replays' tallies) and no other,
    finite teacher-forced logits.  Replayed-step ms, tok/s, prefill
    seconds and peak allocated memory are printed, with the bytes a step
-   moves: the weights, the MoE experts (the one-hot dispatch reads all of
-   them; uniform routing would pick fewer), the hybrid's and xLSTM's
+   moves: the weights, the MoE experts (the dropless dispatch reads the
+   experts its tokens pick: with uniform routing, the expected ones), the
+   hybrid's and xLSTM's
    per-depth recurrent states and the enc-dec cross memory.
 4f. The multi-device dry run and DTensor on the card: (a)
    ``launch/dryrun.py::run_case`` with fake CUDA tensors on the single
@@ -2725,10 +2726,10 @@ def gate_counts(label, counts, kernels, want):
 
 
 def family_bytes(cfg, loaded, B, W, n_paths, depth):
-    """What a verify step must move besides the cache: the weights it
-    reads (all of them, the one-hot dispatch reading every expert), the
-    MoE experts' share of them and, with uniform routing, the experts
-    that B*W verify tokens (and B decode tokens) pick in expectation; the
+    """What a verify step must move besides the cache: the weights (every
+    expert's among them), the MoE experts' share of them and, with uniform
+    routing, the experts that B*W verify tokens (and B decode tokens) pick
+    in expectation, which the dropless dispatch reads; the
     hybrid's per-depth recurrent states (L x D x B*P x nh x hd x N x 4 B
     written a step) and xLSTM's (each mLSTM layer's C, n and m, each
     sLSTM layer's c, n, h and m, float32, D x B*P of them); the enc-dec

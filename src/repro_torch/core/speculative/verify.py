@@ -62,7 +62,7 @@ class SpecState:
 
 
 def spec_step(model, params, heads, tree, state: SpecState, *,
-              tree_kernel="dense", active=None, marks=None):
+              tree_kernel="dense", active=None, marks=None, tap=None):
     """One Ghidorah speculative decoding step, batched over sequences.
 
     Each sequence accepts its own chain length; the commit is a per-sequence
@@ -77,7 +77,8 @@ def spec_step(model, params, heads, tree, state: SpecState, *,
     ``marks`` (``runtime.trace.PhaseMarks``, given by the captured step)
     records a timing event at each phase boundary: start, after the draft,
     after the verify forward, after the accept walk, after the commit and
-    emit.
+    emit.  ``tap`` (``runtime.trace.ExpertTap``, given by the captured step
+    of a model with experts) goes to the verify forward.
     """
     cfg = model.cfg
     if marks is not None:
@@ -87,7 +88,7 @@ def spec_step(model, params, heads, tree, state: SpecState, *,
     if marks is not None:
         marks.at(1)
     logits, extras = model.verify(params, state.cache, tree_tokens, tree,
-                                  tree_kernel=tree_kernel)
+                                  tree_kernel=tree_kernel, tap=tap)
     if marks is not None:
         marks.at(2)
     acc = accept_walk(tree, tree_tokens, logits)

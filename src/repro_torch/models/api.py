@@ -7,7 +7,8 @@
   decode(params, cache, tokens)                  -> logits, cache
   verify(params, cache, tree_tokens, tree)       -> logits, extras
     (kw: tree_kernel; families without the split paged verify accept and
-     ignore it)
+     ignore it; tap, a ``trace.ExpertTap``, which families without
+     experts ignore)
   commit(cache, extras, tree,
          accept_nodes (B, Dmax), n_accept (B,),
          path_idx (B,))                          -> cache
@@ -57,10 +58,11 @@ def _dense_like(cfg, family):
                                    return_cache=return_cache,
                                    last_logits=last_logits)
 
-    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
+    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense",
+               tap=None):
         return transformer.verify(cfg, params, cache, tree_tokens,
                                   tree.depth, tree.mask,
-                                  tree_kernel=tree_kernel)
+                                  tree_kernel=tree_kernel, tap=tap)
 
     def decode(params, cache, tokens):
         return transformer.decode(cfg, params, cache, tokens)
@@ -83,8 +85,9 @@ def _hybrid(cfg):
                               window=window, return_cache=return_cache,
                               last_logits=last_logits)
 
-    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
-        del tree_kernel              # no split paged verify here
+    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense",
+               tap=None):
+        del tree_kernel, tap         # no split paged verify, no experts
         return hybrid.verify(cfg, params, cache, tree_tokens, tree.depth,
                              tree.mask, paths=tree.paths,
                              node_path=tree.node_path,
@@ -112,8 +115,9 @@ def _xlstm(cfg):
                                    return_cache=return_cache,
                                    last_logits=last_logits)
 
-    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
-        del tree_kernel              # no KV: nothing to split
+    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense",
+               tap=None):
+        del tree_kernel, tap         # no KV: nothing to split; no experts
         return xlstm_model.verify(cfg, params, cache, tree_tokens,
                                   paths=tree.paths, node_path=tree.node_path,
                                   node_depth=tree.node_depth)
@@ -144,8 +148,9 @@ def _encdec(cfg):
             max_len=max_len, window=window, return_cache=return_cache,
             last_logits=last_logits)
 
-    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense"):
-        del tree_kernel              # the reference drops it: always fused
+    def verify(params, cache, tree_tokens, tree, *, tree_kernel="dense",
+               tap=None):
+        del tree_kernel, tap         # always fused, as the reference
         return encdec.verify(cfg, params, cache, tree_tokens, tree.depth,
                              tree.mask)
 

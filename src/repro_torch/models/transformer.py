@@ -11,6 +11,11 @@ Python loop over layers replaces ``lax.scan``.  Three paths:
 ``commit`` writes the accepted tree path's KVs into the cache.  A paged
 cache (``runtime/cache.py::PagedKVCache``) is written and committed through
 its block table by ``bulk_write``/``kv_commit``.
+
+An MoE layer routes dropless on the serving forward (verify, decode and a
+prefill that keeps its cache: ``mlp.moe_dropless``), as the model is
+published; a prefill that keeps no cache (training) takes the JAX
+package's capacity form (``mlp.moe_apply``).
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 from repro_torch.core.hcmp import sharding as shd
 from repro_torch.models import common as cm
 from repro_torch.models.attention import attn_init, attn_prefill, attn_verify
-from repro_torch.models.mlp import mlp_apply, mlp_init, moe_apply, moe_init
+from repro_torch.models.mlp import (mlp_apply, mlp_init, moe_apply,
+                                    moe_dropless, moe_init)
 from repro_torch.runtime.cache import (Cache, PagedKVCache, bulk_write,
                                       init_kv_cache, kv_commit)
 
@@ -54,12 +60,22 @@ def init_params(cfg, gen):
     return params
 
 
-def _mix(cfg, lp, h):
-    """The layer's MoE with its load-balance term (0-d float32), or its
-    MLP with None (the reference adds a zero)."""
-    if cfg.num_experts:
+def _mix(cfg, lp, h, *, dropless=False, aux=True, tap=None, layer=0):
+    """The layer's MoE with its load-balance term (0-d float32; None when
+    dropless without ``aux``), or its MLP with None (the reference adds a
+    zero).  ``dropless`` takes the serving form; ``tap`` (a
+    ``trace.ExpertTap``) brackets the dropless block of layer ``layer``
+    and receives its rows per expert."""
+    if not cfg.num_experts:
+        return mlp_apply(cfg, lp["mlp"], h), None
+    if not dropless:
         return moe_apply(cfg, lp["moe"], h)
-    return mlp_apply(cfg, lp["mlp"], h), None
+    if tap is None:
+        return moe_dropless(cfg, lp["moe"], h, aux=aux)
+    tap.begin(layer)
+    out = moe_dropless(cfg, lp["moe"], h, aux=aux, counts=tap.counts[layer])
+    tap.end(layer)
+    return out
 
 
 def _logits(cfg, params, x):
@@ -79,9 +95,10 @@ def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
     replaces the token embedding (the VLM path: patch embeds, then the
     token embeds).  ``max_len`` sets the cache capacity (>= S + expected
     new tokens); ``return_cache=False`` skips all KV-cache work (training:
-    the path is plain autograd-safe torch).  ``extras`` holds ``aux_loss``
-    (0-d float32, the layers' MoE load-balance terms summed) and
-    ``hidden`` (B,S,d)."""
+    the path is plain autograd-safe torch, its MoE the capacity form; a
+    prefill that keeps its cache serves, its MoE dropless).  ``extras``
+    holds ``aux_loss`` (0-d float32, the layers' MoE load-balance terms
+    summed) and ``hidden`` (B,S,d)."""
     x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
     B, S, _ = x.shape
     ks, vs, auxs = [], [], []
@@ -90,7 +107,8 @@ def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
                                  cm.rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps),
                                  window=window)
         x = x + a
-        m, aux = _mix(cfg, lp, cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))
+        m, aux = _mix(cfg, lp, cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps),
+                      dropless=return_cache)
         x = x + m
         if aux is not None:
             auxs.append(aux)
@@ -113,14 +131,16 @@ def prefill(cfg, params, tokens, embeds=None, *, window=0, max_len=None,
 
 # --------------------------------------------------------------------------
 def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask,
-           *, tree_kernel="dense"):
+           *, tree_kernel="dense", tap=None):
     """Tree-verification forward: W draft tokens vs cache + tree mask.
 
     Returns (logits (B,W,V), extras) with ``extras["tree_kv"]`` = (k, v),
     each (L,B,W,Hkv,hd), NOT committed: call ``commit`` with the accepted
     path.  A paged cache hands each layer its pool slice and, when the pool
     is int8, its (P, Hkv) scale slices; ``tree_kernel`` picks the fused or
-    the split paged verify.
+    the split paged verify.  ``tap`` (a ``trace.ExpertTap``, given by the
+    captured step of a model with experts) times each layer's expert block
+    and counts its rows per expert.
     """
     x = embed_tokens(cfg, params, tree_tokens)
     kv = cache.kv
@@ -143,7 +163,8 @@ def verify(cfg, params, cache: Cache, tree_tokens, tree_depth, tree_mask,
             tree_mask=tree_mask, window=kv.window, tree_kernel=tree_kernel,
             **layer_kv)
         x = x + a
-        x = x + _mix(cfg, lp, cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps))[0]
+        x = x + _mix(cfg, lp, cm.rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps),
+                     dropless=True, aux=False, tap=tap, layer=i)[0]
         k_new.append(k1)
         v_new.append(v1)
     extras = {"tree_kv": (torch.stack(k_new), torch.stack(v_new)),

@@ -373,12 +373,12 @@ def _seq_step(model, params, state, *, active):
 
 
 def _decode_step(model, params, heads, strategy, state, done, rem, eos_val,
-                 tree_kernel, marks=None):
+                 tree_kernel, marks=None, tap=None):
     """One decode step, the body of the reference's scan (and the step
     ``runtime/graphs.py`` captures).  ``eos_val`` is an int or a 0-d
-    tensor; ``marks`` goes to ``spec_step`` (the captured drafted step's
-    phase events).  Returns (state, done, rem, emitted (B, Dmax)
-    eos-padded, n (B,) emitted count)."""
+    tensor; ``marks`` and ``tap`` go to ``spec_step`` (the captured
+    drafted step's phase events and expert tap).  Returns (state, done,
+    rem, emitted (B, Dmax) eos-padded, n (B,) emitted count)."""
     # capacity guard BEFORE the step: a commit may write up to max_depth
     # slots (1 for sequential), so freeze once the ring cannot take a
     # worst case without wrapping
@@ -390,7 +390,7 @@ def _decode_step(model, params, heads, strategy, state, done, rem, eos_val,
     else:
         state, emitted, n = spec_step(model, params, heads, strategy.tree,
                                       state, tree_kernel=tree_kernel,
-                                      active=active, marks=marks)
+                                      active=active, marks=marks, tap=tap)
     idx = torch.arange(emitted.shape[1], device=emitted.device)[None]
     valid = idx < n[:, None]
     is_eos = valid & (emitted == eos_val)
@@ -617,9 +617,12 @@ class DecodeEngine(_PagedPoolMixin):
         # a dropped engine's graphs for the garbage collector to destroy
         # at some later moment (inside another capture, say)
         on_card = self.device.type == "cuda"
+        cfg = model.cfg
         self._graphs = ChunkGraphs(
             functools.partial(_decode_step, model, params, heads),
-            self.device, capture=on_card)
+            self.device, capture=on_card,
+            experts=(cfg.num_layers, cfg.num_experts) if cfg.num_experts
+            else None)
         self._graphed = on_card
         # the captured prefill calls, at the piece width the scheduler
         # hands over (``sched_piece_width``; 0: none)
@@ -785,14 +788,14 @@ class DecodeEngine(_PagedPoolMixin):
         rem, toks (K, B, Dmax) eos-padded, ns (K, B) emitted counts)."""
         graphed = self._graphed and not _EAGER.depth
         if self.hcmp == "overlap" and strategy.draft == "medusa":
-            self._graphs.last, self._graphs.marks = "eager", None
+            self._graphs.mark_eager()
             return self._hcmp().run_chunk(
                 self.params, strategy, state, done, rem, K, eos_val,
                 self._bank_epoch, graphs=self._graphs if graphed else None)
         if graphed:
             return self._graphs.run(K, strategy, state, done, rem, eos_val,
                                     self.tree_kernel, self._eager_chunk)
-        self._graphs.last, self._graphs.marks = "eager", None
+        self._graphs.mark_eager()
         return self._eager_chunk(K, strategy, state, done, rem, eos_val)
 
     # ---- batch generation ------------------------------------------------
@@ -848,7 +851,7 @@ class DecodeEngine(_PagedPoolMixin):
                 with trace.span("engine.chunk.wait"):
                     # torchlint: disable=T3 (the sync)
                     host = host.cpu().numpy()
-                trace.after_transfer(self._graphs.marks)
+                trace.after_transfer(self._graphs.marks, self._graphs.tap)
             times.append(time.perf_counter() - t0)
             device_steps += k
             if self._graphs.last == "replay":
@@ -1101,10 +1104,8 @@ class DecodeEngine(_PagedPoolMixin):
         pool's page scales arm at piece boundaries), under a scheduler
         piece width C: a piece of width C, an admission of at most C
         tokens.  An admission pads to the smallest admission width that
-        holds it, except where the model routes tokens to experts: an
-        expert's capacity grows with the tokens routed together, so
-        padding would change which choices drop, and such an admission
-        engages only at a width's exact size."""
+        holds it (a model with experts routes every choice of every token,
+        the pad's too, so the pad changes no real token's output)."""
         C = self._piece_C
         kv = state.cache.kv
         if not (C and self._graphed and not _EAGER.depth
@@ -1112,12 +1113,8 @@ class DecodeEngine(_PagedPoolMixin):
                 and not kv.quantized):
             return None
         if kind == "extend":
-            W = C if S == C else None
-        else:
-            W = next((w for w in piece_widths(C) if S <= w), None)
-            if W is not None and W != S and self.model.cfg.num_experts:
-                W = None
-        return W
+            return C if S == C else None
+        return next((w for w in piece_widths(C) if S <= w), None)
 
     def _build_pieces(self, state) -> None:
         """Every piece of the piece width, on ``state``'s pool, unless they
@@ -1166,7 +1163,7 @@ class DecodeEngine(_PagedPoolMixin):
                               done.to(torch.int64), rem.to(torch.int64)])
             with trace.span("engine.chunk.wait"):
                 host = host.cpu().numpy()  # torchlint: disable=T3 (the sync)
-            trace.after_transfer(self._graphs.marks)
+            trace.after_transfer(self._graphs.marks, self._graphs.tap)
         n = K * B
         return (state, host[n * (D + 1):n * (D + 1) + B] != 0, host[-B:],
                 (host[:n * D].reshape(K, B, D),

@@ -70,6 +70,11 @@ Every capture of the inline drafted step holds five timing events at its
 phase boundaries (``trace.PhaseMarks``, handed to the step as ``marks``),
 whether the tracer is on or not; ``ChunkGraphs.marks`` is the latest
 chunk's graph's, for the tracer to read after the chunk's host transfer.
+For a model with experts (``ChunkGraphs(..., experts=(L, E))``) that
+step also holds a ``trace.ExpertTap``: two timing events a layer around
+its expert block and the buffer its dispatch counts each expert's rows
+into (``ChunkGraphs.tap``, read alike); a model without experts holds
+none, so its step gains no node.
 
 Prompt prefill (``PieceGraphs``): the continuous scheduler's admission
 prefill and its chunked-prefill pieces, captured at fixed widths (the
@@ -212,11 +217,12 @@ class StepGraph:
     emitted (B, D), n (B,))``.  With ``tree_tokens`` it is the overlap
     step, ``step_fn(..., tree_kernel, tree_tokens, out)``, which also
     returns the next draft, written into ``out``.  ``marks`` (a
-    ``trace.PhaseMarks``) goes to the inline step as its phase events."""
+    ``trace.PhaseMarks``) goes to the inline step as its phase events,
+    ``tap`` (a ``trace.ExpertTap``) as its expert tap."""
 
     def __init__(self, step_fn: Callable, strategy, state: SpecState, done,
                  rem, eos_val: int, tree_kernel: str, tree_tokens=None,
-                 marks=None):
+                 marks=None, tap=None):
         cache = state.cache
         self.step_fn, self.tree_kernel = step_fn, tree_kernel
         self.layout = type(cache.kv)
@@ -240,7 +246,7 @@ class StepGraph:
         self.eos_val = int(eos_val)
         self.eos = torch.full((), self.eos_val, dtype=torch.int64, device=dev)
         self.tree_tokens = _clone(tree_tokens)
-        self.marks = marks
+        self.marks, self.tap = marks, tap
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally = CaptureTally()
         self.emitted = self.n = None
@@ -255,7 +261,8 @@ class StepGraph:
         args = (self.strategy, state, self.done, self.rem, self.eos,
                 self.tree_kernel)
         if self.tree_tokens is None:
-            kw = {} if self.marks is None else {"marks": self.marks}
+            kw = {k: v for k, v in (("marks", self.marks), ("tap", self.tap))
+                  if v is not None}
             state, done, rem, emitted, n = self.step_fn(*args, **kw)
         else:
             state, done, rem, emitted, n, _ = self.step_fn(
@@ -360,12 +367,16 @@ class ChunkGraphs:
     steps replayed and run as warm-up, the seconds the captures took and
     the memory the device reserved while capturing (``pool_bytes``).
     ``last`` says how the latest chunk ran: "warm-up", "capture" (then
-    replayed), "replay", or "eager" (set by the engine); ``marks`` is the
-    phase events of the graph it replayed (None when it replayed none or
-    the graph has none)."""
+    replayed), "replay", or "eager" (set by the engine, ``mark_eager``);
+    ``marks`` and ``tap`` are the phase events and the expert tap of the
+    graph it replayed (None when it replayed none or the graph has none).
+    ``experts``, (L, E) for a model with experts, gives each inline
+    drafted step a tap."""
 
-    def __init__(self, step_fn: Callable, device, *, capture: bool = True):
+    def __init__(self, step_fn: Callable, device, *, capture: bool = True,
+                 experts: Optional[tuple] = None):
         self.step_fn, self.device, self.capture = step_fn, device, capture
+        self.experts = experts
         self._graphs: Dict[tuple, StepGraph] = {}
         self._warm = set()
         self._pool = self._stream = None
@@ -374,6 +385,11 @@ class ChunkGraphs:
                           piece_eager=0)
         self.last: Optional[str] = None
         self.marks: Optional[trace.PhaseMarks] = None
+        self.tap: Optional[trace.ExpertTap] = None
+
+    def mark_eager(self) -> None:
+        """The latest chunk ran op by op: no graph's events to read."""
+        self.last, self.marks, self.tap = "eager", None, None
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -411,10 +427,12 @@ class ChunkGraphs:
 
     def _build(self, step_fn, strategy, state, done, rem, eos_val,
                tree_kernel, tree_tokens):
-        marks = trace.PhaseMarks() if self.capture and \
-            tree_tokens is None and strategy.draft == "medusa" else None
+        inline = tree_tokens is None and strategy.draft == "medusa"
+        marks = trace.PhaseMarks() if self.capture and inline else None
+        tap = trace.ExpertTap(*self.experts, self.device, self.capture) \
+            if self.experts and inline else None
         g = StepGraph(step_fn, strategy, state, done, rem, eos_val,
-                      tree_kernel, tree_tokens, marks)
+                      tree_kernel, tree_tokens, marks, tap)
         self._capture(g)
         return g
 
@@ -457,7 +475,7 @@ class ChunkGraphs:
                                     rem, eos_val, *extra)
             self._warm.add(key)
             self.stats["warmup_steps"] += K
-            self.last, self.marks = "warm-up", None
+            self.last, self.marks, self.tap = "warm-up", None, None
             return out
         g = self._graphs.get(key)
         if g is not None and g.holds(state):
@@ -485,7 +503,7 @@ class ChunkGraphs:
                     ns = g.n.new_empty((K,) + tuple(g.n.shape))
                 toks[i].copy_(g.emitted)
                 ns[i].copy_(g.n)
-        self.marks = g.marks
+        self.marks, self.tap = g.marks, g.tap
         self.stats["replays"] += K
         out = (g.state(), g.done, g.rem, toks, ns)
         return out if overlap is None else out + (g.tree_tokens,)

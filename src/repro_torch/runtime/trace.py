@@ -36,7 +36,15 @@ Device times, with no sync:
   verify forward, after the accept walk, after the commit and emit).
   Every capture of the inline drafted step records them, traced or not,
   so tracing never changes a graph; ``after_transfer`` reads the last
-  replay's four phase times into a ``PhaseRecord``.
+  replay's four phase times into a ``PhaseRecord``;
+* ``ExpertTap``: in the inline drafted step of a model with experts, two
+  timing events a layer around its expert block (``PhaseRecord.moe``:
+  their device ms summed over the layers; None for a model without
+  experts, whose step holds no tap), and an (L, E) buffer into which the
+  dispatch counts the rows each expert took.  ``after_transfer`` reads
+  that buffer too, only while the tracer is on, into a ``RouteRecord``
+  for the chunk's last step: per layer the rows routed, the experts hit
+  and the largest expert's rows.
 
 Names recorded by the serving path (who reads each: ``PERF.md`` §3):
 ``engine.chunk`` (``.h2d``, ``.load``, ``.replay``, ``.wait``),
@@ -89,6 +97,14 @@ class PhaseRecord(NamedTuple):
     verify: float
     accept: float
     commit: float
+    moe: Optional[float] = None   # the expert blocks' ms, within verify
+
+
+class RouteRecord(NamedTuple):
+    t: int                    # perf_counter_ns when it was read
+    rows: Tuple[int, ...]     # per layer: the (token, choice) rows routed
+    hit: Tuple[int, ...]      # the experts that took a row
+    top: Tuple[int, ...]      # the largest expert's rows
 
 
 class Anchor(NamedTuple):
@@ -196,9 +212,47 @@ class PhaseMarks:
                      for a, b in zip(self.events, self.events[1:]))
 
 
+class ExpertTap:
+    """The expert layers of a captured step: ``counts`` (L, E) int64, the
+    rows each expert took in each layer, which the dispatch writes in
+    place (``models/mlp.py::moe_dropless``); with ``timed``, two external
+    timing events a layer, recorded around its expert block.  Without
+    ``timed`` (the CPU's static-buffer step) only the counts."""
+
+    def __init__(self, layers: int, experts: int, device, timed: bool):
+        self.counts = torch.zeros((layers, experts), dtype=torch.int64,
+                                  device=device)
+        self.events = [torch.cuda.Event(enable_timing=True, external=True)
+                       for _ in range(2 * layers)] if timed else None
+
+    def begin(self, layer: int) -> None:
+        if self.events is not None:
+            self.events[2 * layer].record()
+
+    def end(self, layer: int) -> None:
+        if self.events is not None:
+            self.events[2 * layer + 1].record()
+
+    def elapsed_ms(self) -> Optional[float]:
+        """The last replay's expert blocks, device ms summed over the
+        layers, once it has completed; None without events."""
+        if self.events is None:
+            return None
+        return sum(a.elapsed_time(b)
+                   for a, b in zip(self.events[::2], self.events[1::2]))
+
+    def read(self) -> tuple:
+        """(rows, hit, top) of the last replay, each a tuple over the
+        layers (one device-to-host copy)."""
+        c = self.counts.cpu()
+        return (tuple(c.sum(dim=1).tolist()),
+                tuple((c > 0).sum(dim=1).tolist()),
+                tuple(c.max(dim=1).values.tolist()))
+
+
 class Tracer:
-    """Bounded buffers of span, device and phase records, and the clock
-    anchors; see the module docstring."""
+    """Bounded buffers of span, device, phase and route records, and the
+    clock anchors; see the module docstring."""
 
     def __init__(self):
         self.forced = False
@@ -207,6 +261,7 @@ class Tracer:
         self._spans = collections.deque(maxlen=CAPACITY)
         self._device = collections.deque(maxlen=CAPACITY)
         self._phases = collections.deque(maxlen=CAPACITY)
+        self._routes = collections.deque(maxlen=CAPACITY)
         self._pending = collections.deque(maxlen=PENDING)
         self._anchors = collections.deque([_anchor()], maxlen=CAPACITY)
 
@@ -231,7 +286,7 @@ class Tracer:
         one)."""
         with self._lock:
             for buf in (self._spans, self._device, self._phases,
-                        self._pending, self._anchors):
+                        self._routes, self._pending, self._anchors):
                 buf.clear()
             self.dropped = 0
             self._anchors.append(_anchor())
@@ -247,22 +302,31 @@ class Tracer:
                     name, t0, t1, tokens,
                     tuple(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))))
 
-    def after_transfer(self, marks: Optional[PhaseMarks]) -> None:
+    def after_transfer(self, marks: Optional[PhaseMarks],
+                       tap: Optional[ExpertTap] = None) -> None:
         """After a decode chunk's host transfer: the last replay's phase
         times (``marks``, None when the chunk replayed no marked graph)
-        and the device-timed spans that have completed."""
-        if marks is not None:
-            rec = PhaseRecord(time.perf_counter_ns(), *marks.elapsed_ms())
-            with self._lock:
-                self.dropped += _append(self._phases, rec)
+        with its expert blocks' time, its routing (``tap``, None when the
+        chunk replayed no graph with experts), and the device-timed spans
+        that have completed."""
+        t = time.perf_counter_ns()
+        phase = None if marks is None else PhaseRecord(
+            t, *marks.elapsed_ms(), None if tap is None else tap.elapsed_ms())
+        route = None if tap is None else RouteRecord(t, *tap.read())
+        with self._lock:
+            if phase is not None:
+                self.dropped += _append(self._phases, phase)
+            if route is not None:
+                self.dropped += _append(self._routes, route)
         self.collect()
 
     def snapshot(self) -> dict:
         """Copies of the records (``spans``, ``device``, ``phases``,
-        ``anchors``) and ``dropped``, the records the bounds pushed out."""
+        ``routes``, ``anchors``) and ``dropped``, the records the bounds
+        pushed out."""
         with self._lock:
             return dict(spans=list(self._spans), device=list(self._device),
-                        phases=list(self._phases),
+                        phases=list(self._phases), routes=list(self._routes),
                         anchors=list(self._anchors), dropped=self.dropped)
 
 
@@ -278,9 +342,10 @@ def span(name: str, rows: int = 0, tokens: int = 0, k: int = 0,
     return Span(TRACER, name, rows, tokens, k, device, graphed)
 
 
-def after_transfer(marks: Optional[PhaseMarks]) -> None:
+def after_transfer(marks: Optional[PhaseMarks],
+                   tap: Optional[ExpertTap] = None) -> None:
     if TRACER.forced or _autograd_profiler._is_profiler_enabled:
-        TRACER.after_transfer(marks)
+        TRACER.after_transfer(marks, tap)
 
 
 def enable() -> None:

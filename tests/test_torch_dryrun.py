@@ -16,8 +16,11 @@ the model's steps across real ranks (``launch/sharded_check.py``).
   second reads the first's commit) of ``qwen2-0.5b-smoke`` and
   ``qwen3-moe-30b-a3b-smoke`` in fp32, both modes, within 2e-5 of the
   unsharded port; the unsharded port within 2e-5 of the JAX model on the
-  bridged weights.  The same on the ranks for ``xlstm-125m-smoke`` and
-  ``zamba2-7b-smoke``, whose commits pick each row's recurrent state.
+  bridged weights, and the MoE's (dropless, expert parallel on the ranks)
+  within 5e-5 of the plain dropless reference, since the JAX model routes
+  its 80-token prefill under a capacity that drops choices.  The same on
+  the ranks for ``xlstm-125m-smoke`` and ``zamba2-7b-smoke``, whose
+  commits pick each row's recurrent state.
 * The recurrent decodes at full width on the (16, 16) mesh move nothing
   over ``data``; the sequence-split attention's parts on one device
   equal the whole cache's; the counters fail loudly without DTensor's
@@ -215,6 +218,39 @@ def _jax_steps(arch, jp, x):
 RECURRENT = ("xlstm-125m-smoke", "zamba2-7b-smoke")
 
 
+def _dropless_reference_steps_match(cfg, params, x, got):
+    """``sharded_check.steps``' logits of a model with experts against the
+    plain float32 reference (``portbench/reference/model.py::Ref``, every
+    choice kept) over each row's whole sequence: the prompt; the prompt
+    and each tree node's path; the prompt and the decode token; then once
+    more that token (the first decode committed it)."""
+    from portbench.reference.model import Ref
+    from test_torch_moe_dropless import LOGIT_TOL, ref_config
+    ref = Ref(ref_config(cfg), params, heads=None)
+    tree, prompt = x["tree"], x["prompt"].long()
+    tt, tok = x["tree_tokens"].long(), x["token"].long()
+    parent = tree.parent.tolist()
+    for b in range(prompt.shape[0]):
+        want, _ = ref.forward(prompt[b], 0)
+        seqs = {"prefill": want}
+        nodes = []
+        for j in range(tree.width):
+            path, node = [], j
+            while node >= 0:
+                path.append(tt[b, node])
+                node = parent[node]
+            seq = torch.cat([prompt[b], torch.stack(path[::-1])])
+            nodes.append(ref.forward(seq, len(seq) - 1)[0][0])
+        seqs["verify"] = torch.stack(nodes)
+        one = torch.cat([prompt[b], tok[b]])
+        seqs["decode"] = ref.forward(one, len(one) - 1)[0]
+        two = torch.cat([one, tok[b]])
+        seqs["decode2"] = ref.forward(two, len(two) - 1)[0]
+        for k, w in seqs.items():
+            err = float((got[k][b].float() - w).abs().max())
+            assert err <= LOGIT_TOL, (cfg.name, k, b, err)
+
+
 def test_sharded_steps_on_four_gloo_ranks_match(tmp_path):
     from repro_torch.core.speculative import tree as T
     params = {}
@@ -241,6 +277,12 @@ def test_sharded_steps_on_four_gloo_ranks_match(tmp_path):
             diffs = sharded_check.max_diffs(got[f"{arch}/{mode}"], want)
             assert max(diffs.values()) <= TOL, (arch, mode, diffs)
         if arch in RECURRENT:
+            continue
+        if cfg.num_experts:
+            # the reference routes the 80-token prefill under a capacity
+            # and drops choices there; the served MoE keeps every choice:
+            # the plain dropless reference instead
+            _dropless_reference_steps_match(cfg, params[arch][1], x, want)
             continue
         # the unsharded port against the JAX model on the same weights
         spec = T.build_tree(T.default_accs(cfg.medusa_heads,

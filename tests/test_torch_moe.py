@@ -2,11 +2,16 @@
 smoke config, float32, CPU), and the parity helpers that
 ``tests/test_torch_vlm.py`` and ``tests/test_torch_hybrid.py`` share.
 
-``moe_apply`` on the same numpy inputs and bridged weights: within 2e-5 in
-the dropless branch (groups of at most 32 tokens) and in the capacity
-branch, one case of which drops choices (a router biased to one expert),
-with the auxiliary loss equal.  The model through prefill, verify, commit
-and decode: logits within 2e-5.  Greedy streams equal the JAX engines'
+``moe_apply`` (the capacity form, which training takes) on the same numpy
+inputs and bridged weights: within 2e-5 in the dropless branch (groups of
+at most 32 tokens) and in the capacity branch, one case of which drops
+choices (a router biased to one expert), with the auxiliary loss equal;
+the forward that keeps no cache over 64 tokens takes that branch too.
+The model through prefill, verify, commit and decode: logits within 2e-5
+(every routed call at most 32 tokens, where the reference drops nothing
+and the port's served, dropless form is the reference's); a 64-token
+verify, where the reference would drop, against the plain dropless
+reference instead.  Greedy streams equal the JAX engines'
 (``np.array_equal``) on the dense and paged engines, the continuous
 scheduler and the static-buffer graph step, on the boosted weights of
 ``tests/test_torch_engine.py`` (a boost of 8 here: at 4 the random
@@ -417,10 +422,60 @@ def test_logits_match_reference():
     assert logits_match(ARCH) < TOL
 
 
-def test_verify_over_32_tokens_takes_the_capacity_branch():
-    """B=4 rows of a W=16 tree verify 64 tokens: one group of 64 at the
-    capacity factor, in the reference as in the port."""
-    assert logits_match(ARCH, B=4, width=16, rounds=1) < TOL
+def test_training_forward_over_32_tokens_takes_the_capacity_branch():
+    """64 tokens routed together (B=4 rows of 16) through the forward that
+    keeps no cache, as training calls it: one group of 64 at the capacity
+    factor, in the reference as in the port; logits and the auxiliary
+    loss equal."""
+    cfg, tcfg = get_config(ARCH), t_get_config(ARCH)
+    jm, tm = j_get_model(cfg), t_get_model(tcfg)
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    g, _, cap = tmlp.moe_groups(tcfg, toks.size)
+    assert (g, cap) == (64, 40)
+    lj, ej, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                           return_cache=False)
+    lt, et, _ = tm.prefill(tp, {"tokens": _t(toks)}, return_cache=False)
+    _close(lt, lj)
+    assert float(et["aux_loss"]) == pytest.approx(float(ej["aux_loss"]),
+                                                  rel=1e-5)
+
+
+def test_verify_over_32_tokens_routes_dropless():
+    """B=4 rows of a W=16 tree verify 64 tokens in one routed call: the
+    served verify keeps every choice, so each node's logits are the plain
+    dropless reference's (``portbench/reference/model.py::Ref``) over the
+    row's prompt and the node's path, on the bridged weights."""
+    from portbench.reference.model import Ref
+    from test_torch_moe_dropless import LOGIT_TOL, ref_config
+    cfg, tcfg = get_config(ARCH), t_get_config(ARCH)
+    tm = t_get_model(tcfg)
+    tp = params_from_jax(tcfg, jax.tree.map(
+        np.asarray, j_get_model(cfg).init_params(jax.random.PRNGKey(0))),
+        device="cpu")
+    ref = Ref(ref_config(tcfg), tp, heads=None)
+    rng = np.random.default_rng(2)
+    B, P = 4, 10
+    toks = _t(rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32))
+    spec = TT.build_tree(TT.default_accs(tcfg.medusa_heads,
+                                         tcfg.medusa_top_k), 16)
+    assert spec.width == 16
+    _, _, cache = tm.prefill(tp, {"tokens": toks}, max_len=P + 8)
+    tt = _t(rng.integers(0, cfg.vocab_size, (B, spec.width)).astype(
+        np.int32))
+    lt, _ = tm.verify(tp, cache, tt, TT.Tree.from_spec(spec, "cpu"))
+    for b in range(B):
+        for j in range(spec.width):
+            path, node = [], j
+            while node >= 0:
+                path.append(int(tt[b, node]))
+                node = int(spec.parent[node])
+            seq = torch.cat([toks[b].long(), torch.tensor(path[::-1])])
+            want, _ = ref.forward(seq, len(seq) - 1)
+            err = float((lt[b, j] - want[0]).abs().max())
+            assert err <= LOGIT_TOL, (b, j, err)
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))

@@ -236,7 +236,6 @@ EAGER_CASES = {
     "embed batch": (dict(arch="llava-next-mistral-7b-smoke"), 4, _vlm_batch),
     "recurrent family": (dict(arch="zamba2-7b-smoke"), 4, None),
     "longer than C": ({}, C + 3, None),
-    "experts, padded": (dict(arch=MOE), 3, None),
     "eager()": ({}, 4, None),
 }
 
@@ -244,9 +243,9 @@ EAGER_CASES = {
 @pytest.mark.parametrize("label", list(EAGER_CASES))
 def test_calls_that_stay_eager(label):
     """int8 pools, embed batches, recurrent families, admissions longer
-    than C, a padded admission of a model with experts and calls inside
-    ``eager()`` replay nothing: each counts as ``piece_eager`` and leaves
-    the bank as the engine without graphs does."""
+    than C and calls inside ``eager()`` replay nothing: each counts as
+    ``piece_eager`` and leaves the bank as the engine without graphs
+    does."""
     kw, S, batch = EAGER_CASES[label]
 
     def run(eng, rng):
@@ -275,24 +274,29 @@ class _nothing:
         return False
 
 
-def test_experts_replay_only_at_a_width_exact_size():
-    """A model with experts routes each group's tokens under a capacity
-    that grows with the group: its admission replays a piece only at a
-    width's exact size, and its pieces always (the scheduler pads them
-    itself)."""
+# a model with experts: admissions padded to the next width (1 -> 2,
+# 3 -> 4, 5 -> 8) and one at a width's size, each followed by a padded piece
+@pytest.mark.parametrize("S", [1, 3, 5, 8])
+def test_a_padded_moe_admission_replays_and_equals_eager(S):
+    """A model with experts routes every choice of every token, the pad's
+    too, so the pad changes no real token's output: its admission pads to
+    the next width and replays as the dense model's does, and so does its
+    padded piece; the rows and tokens equal the eager engine's."""
     def run(eng, rng):
         bank = _bank(eng)
-        bank, first = eng.sched_admit(bank, 1, {"tokens": _prompt(rng, 4)},
-                                      n_tokens=6, reserve_len=9)
+        bank, first = eng.sched_admit(bank, 1, {"tokens": _prompt(rng, S)},
+                                      n_tokens=6, reserve_len=S + 5)
         piece = np.zeros((1, C), np.int32)
         piece[0, :5] = _prompt(rng, 5)
         bank, last = eng.sched_extend(bank, 1, piece, 5)
         return eng, bank, (int(first), int(last))
 
-    (g, gs, gt), (_, es, et) = _both(run, arch=MOE)
+    (g, gs, gt), (e, es, et) = _both(run, arch=MOE)
     assert g.graph_stats["piece_replays"] == 2
+    assert g.graph_stats["piece_eager"] == e.graph_stats["piece_eager"] - 2
     assert gt == et
     _same_rows(_row(gs, 1), _row(es, 1))
+    _same_rows(_row(gs, 0), _row(es, 0))
 
 
 def test_prefill_spans_carry_the_graphed_attribute():
